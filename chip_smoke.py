@@ -8,7 +8,9 @@
    ``llckbdm_tpu_torch/csrc`` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (eig_cs on the production reduced matrices of the V=2048
-   sweep) and once more at an odd size, timed with CUDA events.
+   sweep) and once more at an odd size, timed with CUDA events
+   (``llckbdm_tpu_torch.tools.timing.cuda_ms``: median of 5 windows of up to
+   200 launches or 100 ms; a call over 100 ms is timed once).
 3. The main path at the bench's north-star size (V=2048 voxels, N=512,
    m = 120..256 step 4, p=16): llc_kbdm_fit, then refine_lines on the top
    16 clusters with 6 Gauss-Newton iterations.  Every kernel must have been
@@ -16,6 +18,14 @@
 4. Gates: the Jacobi off-diagonal counter below 1e-2 on 32 voxels, and the
    refined lines within 1e-8 of the float64 oracle's Gauss-Newton polish on
    the 8 voxels with the largest last GN step.
+5. The two tool kernels, each through its tool's path with the launch
+   counts set to 0 before and read after: ``tools.kernel_smoke.run``
+   (row_probe against its numpy loop) and ``tools.bench_eigh_variants``'
+   six runs (eigh_probe's invariants and finite w at (4480, 24, 24), 8
+   sweeps, timed).  Then row_probe against its plain version, with and
+   without i == j in the schedule, and eigh_probe against its plain version
+   at n=8 over one sweep in all five variants; the plain eigh probe at the
+   tool's size is timed over one call.
 
 The oracle (llckbdm_tpu/oracle/reference.py, numpy and scipy only) is loaded
 by file path so that nothing of JAX is imported.  Nothing catches a failure.
@@ -78,18 +88,14 @@ def make_signals(oracle, v: int):
     return sigs, truths
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call by CUDA events, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def timed(label: str, kernel, plain) -> dict:
+    """Kernel and plain times by ``cuda_ms``, printed with their spread."""
+    from llckbdm_tpu_torch.tools.timing import cuda_ms
+
+    t_k, t_p = cuda_ms(kernel), cuda_ms(plain)
+    print(f"{label}: kernel {t_k}; plain {t_p}", flush=True)
+    return dict(ms=t_k.ms, plain_ms=t_p.ms, ms_range=[t_k.lo, t_k.hi],
+                plain_ms_range=[t_p.lo, t_p.hi])
 
 
 def matched_eig_err(mu_a: torch.Tensor, mu_b: torch.Tensor) -> torch.Tensor:
@@ -159,9 +165,10 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
         worst = max(worst, err.max().item())
     out["eig_cs"] = dict(
         max_abs_err=worst, tol="matched |dmu| <= 3e-3 |A|_F",
-        ms=cuda_ms(lambda: cuda_jacobi.eig_cs_resid(ut, sweeps), 5),
-        plain_ms=cuda_ms(lambda: cuda_jacobi.eig_cs_resid_plain(ut, sweeps), 1),
-        shape=list(ut.shape))
+        shape=list(ut.shape),
+        **timed(f"eig_cs {tuple(ut.shape)}",
+                lambda: cuda_jacobi.eig_cs_resid(ut, sweeps),
+                lambda: cuda_jacobi.eig_cs_resid_plain(ut, sweeps)))
 
     # gram_svd: singular values to f32 rounding; V is unique only up to a
     # phase per column (the w phase of a converged pair is rounding noise),
@@ -184,9 +191,10 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     m = crandn(gen, batch, k, k)
     out["gram_svd"] = dict(
         max_abs_err=worst, tol="|ds| <= 1e-5 s_max; reconstruction <= 1e-4",
-        ms=cuda_ms(lambda: cuda_linalg.gram_svd(m, es), 5),
-        plain_ms=cuda_ms(lambda: cuda_linalg.gram_svd_plain(m, es), 1),
-        shape=[batch, k, k])
+        shape=[batch, k, k],
+        **timed(f"gram_svd ({batch}, {k}, {k})",
+                lambda: cuda_linalg.gram_svd(m, es),
+                lambda: cuda_linalg.gram_svd_plain(m, es)))
 
     # cholqr_rinv and chol_solve on well-conditioned Gram matrices: the same
     # f32 operations in another summation order, so 1e-5 relative
@@ -209,10 +217,10 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     g = gram(gen, batch, k)
     sh = 3e-6 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
     out["cholqr_rinv"] = dict(
-        max_abs_err=worst, tol="1e-5 relative",
-        ms=cuda_ms(lambda: cuda_linalg.cholqr_rinv(g, sh), 5),
-        plain_ms=cuda_ms(lambda: cuda_linalg.cholqr_rinv_plain(g, sh), 1),
-        shape=[batch, k, k])
+        max_abs_err=worst, tol="1e-5 relative", shape=[batch, k, k],
+        **timed(f"cholqr_rinv ({batch}, {k}, {k})",
+                lambda: cuda_linalg.cholqr_rinv(g, sh),
+                lambda: cuda_linalg.cholqr_rinv_plain(g, sh)))
 
     worst = 0.0
     timing = {}
@@ -235,15 +243,103 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
         check(e < 1e-5 and res.item() < 1e-4, f"chol_solve k={kk} disagrees")
         worst = max(worst, (x_k - x_p).abs().max().item())
         if kk in (p, 2 * REFINE_CLUSTERS):
-            timing[kk] = (cuda_ms(lambda: cuda_linalg.chol_solve(g, rhs, sh), 5),
-                          cuda_ms(lambda: cuda_linalg.chol_solve_plain(g, rhs, sh), 1))
+            timing[kk] = timed(f"chol_solve ({b}, {kk}, {kk})",
+                               lambda: cuda_linalg.chol_solve(g, rhs, sh),
+                               lambda: cuda_linalg.chol_solve_plain(g, rhs, sh))
     gn = 2 * REFINE_CLUSTERS
-    print(f"chol_solve ({v}, {gn}, {gn}) GN normal equations: kernel "
-          f"{timing[gn][0]:.4f} ms, plain {timing[gn][1]:.4f} ms")
     out["chol_solve"] = dict(
-        max_abs_err=worst, tol="1e-5 relative", ms=timing[p][0],
-        plain_ms=timing[p][1], shape=[batch, p, p],
-        ms_gn=timing[gn][0], plain_ms_gn=timing[gn][1], shape_gn=[v, gn, gn])
+        max_abs_err=worst, tol="1e-5 relative", shape=[batch, p, p],
+        **timing[p], shape_gn=[v, gn, gn],
+        **{f"{key}_gn": val for key, val in timing[gn].items()})
+    return out
+
+
+def tool_path(name: str, drive) -> tuple[int, object]:
+    """Drive one tool's path with the launch counts set to 0 just before and
+    read just after; returns the kernel's launch count and what drive gave."""
+    from llckbdm_tpu_torch.ops import _build
+
+    _build.reset_counts()
+    result = drive()
+    launches, plain = _build.LAUNCHES[name], dict(_build.PLAIN_ON_CUDA)
+    print(f"{name}: its tool's path launched it {launches} times; plain on "
+          f"CUDA {plain}", flush=True)
+    check(launches > 0, f"{name} was not launched by its tool's path")
+    check(not any(plain.values()), f"a plain version ran on CUDA: {plain}")
+    return launches, result
+
+
+def probe_checks() -> dict:
+    """The two tool kernels: each tool's path, then each kernel against its
+    plain version on the same CUDA inputs."""
+    from llckbdm_tpu_torch.ops import cuda_probes
+    from llckbdm_tpu_torch.tools import bench_eigh_variants as bev
+    from llckbdm_tpu_torch.tools import kernel_smoke
+    from llckbdm_tpu_torch.tools.timing import cuda_ms
+
+    out = {}
+    # row_probe: the tool asserts the kernel against its numpy loop (1e-5);
+    # here also against the plain version, with and without i == j
+    launches, _ = tool_path("row_probe", kernel_smoke.run)
+    n, b, steps = 24, 256, 16
+    a = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (b, n, n)).astype(np.float32)).to(DEVICE)
+    worst = 0.0
+    for make in (kernel_smoke.schedule, kernel_smoke.self_paired_schedule):
+        sched = torch.from_numpy(make(n, steps)).to(DEVICE)
+        err = (cuda_probes.row_probe(sched, a)
+               - cuda_probes.row_probe_plain(sched, a)).abs().max().item()
+        print(f"row_probe ({b}, {n}, {n}) {make.__name__}: max abs err "
+              f"{err:.3e} (< 1e-5)")
+        check(err < 1e-5, f"row_probe disagrees ({make.__name__}): {err:.3e}")
+        worst = max(worst, err)
+    sched = torch.from_numpy(kernel_smoke.schedule(n, steps)).to(DEVICE)
+    out["row_probe"] = dict(
+        launches=launches, max_abs_err=worst, tol="1e-5 absolute",
+        shape=[b, n, n], steps=steps,
+        **timed(f"row_probe ({b}, {n}, {n}) steps={steps}",
+                lambda: cuda_probes.row_probe(sched, a),
+                lambda: cuda_probes.row_probe_plain(sched, a)))
+
+    # eigh_probe: the tool's six runs check the invariants and finite w at
+    # its size and time each; the variant they leave out (rows + V) here
+    launches, runs = tool_path("eigh_probe", bev.run_all)
+    runs["rows+v"] = bev.run(**cuda_probes.EIGH_VARIANTS["rows+v"])
+    # one sweep at n=8, where the chain is short enough for elementwise
+    # parity with the plain version: w to 1e-4 max|A|, the norms and the
+    # coefficient sum to 1e-5 relative
+    a8 = bev.make_inputs(8, 512, DEVICE)
+    tol = 1e-4 * a8.abs().max().item()
+    worst = 0.0
+    for name, switches in cuda_probes.EIGH_VARIANTS.items():
+        got = cuda_probes.eigh_probe(a8, 1, **switches)
+        want = cuda_probes.eigh_probe_plain(a8, 1, **switches)
+        err = (got.w - want.w).abs().max().item()
+        rel = max(((x - y).abs() / y.abs()).max().item()
+                  for x, y in zip(got[1:], want[1:]))
+        print(f"eigh_probe (512, 8, 8) sweeps=1 {name}: max |dw| {err:.3e} "
+              f"(<= {tol:.3e}), norms and coefficient sum rel {rel:.3e} "
+              f"(<= 1e-5)")
+        check(err <= tol and rel <= 1e-5, f"eigh_probe {name} disagrees")
+        worst = max(worst, err)
+    # the plain version at the tool's size, full variant: its invariants, and
+    # its time over one call (a Python loop of 2208 pair steps)
+    big = bev.make_inputs(device=DEVICE)
+    want = cuda_probes.eigh_probe_plain(big, bev.SWEEPS)
+    errs = bev.invariant_errors(big, want, True, True)
+    check(max(errs.values()) <= bev.INVARIANT_TOL,
+          f"plain eigh_probe invariants {errs}")
+    t_p = cuda_ms(lambda: cuda_probes.eigh_probe_plain(big, bev.SWEEPS))
+    t_k = runs["full"]
+    print(f"eigh_probe {tuple(big.shape)} sweeps={bev.SWEEPS} full: kernel "
+          f"{t_k}; plain {t_p}", flush=True)
+    out["eigh_probe"] = dict(
+        launches=launches, max_abs_err=worst,
+        tol="w: 1e-4 max|A| at n=8, one sweep; at (4480, 24, 24), 8 sweeps: "
+            "|V|_F, |S|_F (no column writes) = |A|_F to 1e-5",
+        shape=list(big.shape), sweeps=bev.SWEEPS, ms=t_k.ms, plain_ms=t_p.ms,
+        ms_range=[t_k.lo, t_k.hi], plain_ms_range=[t_p.lo, t_p.hi],
+        variant_ms={name: t.ms for name, t in runs.items()})
     return out
 
 
@@ -313,6 +409,7 @@ def main() -> int:
           f"fits/s; peak {peak_gb:.2f} GiB; launches {launches}; plain on "
           f"CUDA {plain}")
     for name in results:
+        results[name]["launches"] = launches.get(name, 0)
         check(launches.get(name, 0) > 0, f"{name} was not launched by the "
               f"main path")
     check(not any(plain.values()), f"a plain version ran on CUDA: {plain}")
@@ -355,6 +452,9 @@ def main() -> int:
           f"{gate:.3e} (< 1e-8); per voxel {errs}")
     check(gate < 1e-8, f"refined lines missed the 1e-8 oracle gate: {gate:.3e}")
 
+    # --- the tool kernels -------------------------------------------------
+    results.update(probe_checks())
+
     sources = {
         "eig_cs": ("llckbdm_tpu_torch/csrc/eig_cs.cu",
                    "llckbdm_tpu/ops/pallas_jacobi.py:94"),
@@ -364,13 +464,15 @@ def main() -> int:
                         "llckbdm_tpu/ops/pallas_linalg.py:244"),
         "chol_solve": ("llckbdm_tpu_torch/csrc/chol.cu",
                        "llckbdm_tpu/ops/pallas_linalg.py:309"),
+        "row_probe": ("llckbdm_tpu_torch/csrc/row_probe.cu",
+                      "tools/pallas_smoke.py:11"),
+        "eigh_probe": ("llckbdm_tpu_torch/csrc/eigh_probe.cu",
+                       "tools/bench_eigh_variants.py:12"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches.get(name, 0),
-                        **r})
+                        "replaces": replaces, **results[name]})
     print(json.dumps({"voxels": VOXELS, "fit_ms": t_fit * 1e3,
                       "refine_ms": t_refine * 1e3, "peak_gib": peak_gb,
                       "jacobi_offdiag_rel": offdiag, "gate_max_err": gate}))

@@ -2,8 +2,9 @@
 
 Everything arrives as plain dicts and numpy arrays, so this module needs no
 JAX: a config as ``dataclasses.asdict`` of the JAX dataclass, a line list as
-the numpy arrays of its fields.  With these, a test feeds both packages
-identical inputs.
+the numpy arrays of its fields, a batch of matrices in the TPU kernels' lane
+layout as one numpy array.  With these, a test feeds both packages identical
+inputs.
 """
 from __future__ import annotations
 
@@ -57,3 +58,20 @@ def lines_from_np(fields: Sequence[np.ndarray], device=None) -> LineList:
                          f"{LineList._fields}, got {len(fields)}")
     return LineList(*(torch.tensor(np.asarray(x), dtype=torch.float32,
                                    device=device) for x in fields))
+
+
+def batch_from_lanes(x: np.ndarray, device=None) -> torch.Tensor:
+    """A batch in the TPU kernels' lane layout, (..., B) with the batch last
+    (such as (n, n, B) matrices), as the port's batch-first (B, ...) tensor
+    of the same dtype."""
+    x = np.asarray(x)
+    if x.ndim < 1:
+        raise ValueError("lane layout: need at least one axis (the batch)")
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, 0))).to(device)
+
+
+def batch_to_lanes(t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`batch_from_lanes`: (B, ...) -> numpy (..., B)."""
+    if t.ndim < 1:
+        raise ValueError("lane layout: need at least one axis (the batch)")
+    return np.ascontiguousarray(np.moveaxis(t.detach().cpu().numpy(), 0, -1))

@@ -1,9 +1,9 @@
 """Build and load the package's CUDA kernels (``llckbdm_tpu_torch/csrc``).
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface, on first use, into ``llckbdm_tpu_torch/_build/`` (listed in
-``.gitignore``), keyed on a hash of the sources and flags; ``ctypes`` loads
-it.  A source that includes PyTorch's headers would take minutes to build;
+The sources are compiled by ``nvcc``, one process per source, all started
+together, and linked into one shared library with a plain C interface, on
+first use, into ``llckbdm_tpu_torch/_build/`` (listed in ``.gitignore``),
+keyed on a hash of the sources and flags; ``ctypes`` loads it.  A source that includes PyTorch's headers would take minutes to build;
 this takes seconds.  Nothing here runs at import time, and nothing catches a
 failed build.
 
@@ -32,7 +32,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (every pointer and the stream as c_void_p)
@@ -41,6 +41,8 @@ _SIGNATURES = {
     "llck_gram_svd": (_P, _P, _P, _I, _I, _I, _P),
     "llck_cholqr_rinv": (_P, _P, _P, _I, _I, _P),
     "llck_chol_solve": (_P, _P, _P, _P, _I, _I, _P),
+    "llck_row_probe": (_P, _P, _P, _I, _I, _I, _P),
+    "llck_eigh_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -76,6 +78,30 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _compile(sources: list[pathlib.Path], obj_dir: pathlib.Path):
+    """One nvcc per source, all running at once; raises if any failed."""
+    objs = [obj_dir / f"{src.stem}.o" for src in sources]
+    procs = []
+    try:
+        for src, obj in zip(sources, objs):
+            procs.append(subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return objs
+
+
 def build() -> pathlib.Path:
     """Compile ``csrc/*.cu`` unless a library for these sources exists."""
     sources = sorted(SRC_DIR.glob("*.cu"))
@@ -87,21 +113,17 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename: a concurrent process never
+    # build under temporary names and rename: a concurrent process never
     # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-            capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = _compile(sources, pathlib.Path(tmp))
+        out = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([_nvcc(), "-shared", "-o", out, *map(str, objs)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(out, lib)
     return lib
 
 

@@ -1,0 +1,56 @@
+"""Milliseconds per call of GPU work, by CUDA events over many launches."""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+WINDOW_CALLS = 200      # a window is this many calls ...
+WINDOW_MS = 100.0       # ... or as many as reach this, if that is fewer
+WINDOWS = 5
+
+
+class Timing(NamedTuple):
+    ms: float           # median over the windows of the mean ms per call
+    lo: float           # fastest window
+    hi: float           # slowest window
+    calls: int          # calls per window
+    windows: int
+
+    def __str__(self) -> str:
+        if self.windows == 1:
+            return f"{self.ms:.4f} ms (one call)"
+        return (f"{self.ms:.4f} ms (median of {self.windows} windows of "
+                f"{self.calls} calls, {self.lo:.4f}-{self.hi:.4f})")
+
+
+def cuda_ms(fn: Callable[[], object]) -> Timing:
+    """Time ``fn`` on the current CUDA device.
+
+    After one warm-up call, one timed call sets the window: 200 calls, or as
+    many as reach 100 ms if that is fewer.  The result is the median of 5
+    windows, with the fastest and the slowest.  A call that takes more than
+    100 ms is timed once, in one window.
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_ms: needs a CUDA device")
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def window(calls: int) -> float:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls
+
+    first = window(1)
+    if first > WINDOW_MS:
+        return Timing(first, first, first, 1, 1)
+    calls = min(WINDOW_CALLS, max(1, math.ceil(WINDOW_MS / first)))
+    times = sorted(window(calls) for _ in range(WINDOWS))
+    return Timing(times[WINDOWS // 2], times[0], times[-1], calls, WINDOWS)

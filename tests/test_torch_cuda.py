@@ -7,15 +7,17 @@ imports no JAX, so it also runs on a GPU machine that has none:
 
 (``--noconftest`` because tests/conftest.py sets JAX up.)  Inputs are made
 with numpy from a seed; each kernel runs at the main path's size and at an
-odd size, which the wrappers pad or the kernel takes as it is.
+odd size, which the wrappers pad or the kernel takes as it is (the eigh
+probe, which pairs only even n, raises instead).
 """
 import numpy as np
 import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
 
-from llckbdm_tpu_torch.ops import _build, cuda_jacobi, cuda_linalg
+from llckbdm_tpu_torch.ops import _build, cuda_jacobi, cuda_linalg, cuda_probes
 from llckbdm_tpu_torch.solver.kbdm import KbdmConfig
+from llckbdm_tpu_torch.tools import bench_eigh_variants, kernel_smoke
 
 CFG = KbdmConfig()
 K = CFG.p + CFG.oversample
@@ -136,3 +138,54 @@ def test_chol_solve_kernel_matches_plain(cuda, k):
     assert dict(_build.LAUNCHES) == {"chol_solve": 1}
     torch.testing.assert_close(x_k, x_p, rtol=0,
                                atol=1e-5 * x_p.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, sched_fn", [
+    (24, kernel_smoke.schedule), (24, kernel_smoke.self_paired_schedule),
+    (7, kernel_smoke.self_paired_schedule)], ids=["tool", "self-paired", "n7"])
+def test_row_probe_kernel_matches_plain(cuda, n, sched_fn):
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.standard_normal((256, n, n)).astype(np.float32)).to(cuda)
+    sched = torch.from_numpy(sched_fn(n, 16)).to(cuda)
+    got = cuda_probes.row_probe(sched, a)
+    want = cuda_probes.row_probe_plain(sched, a)
+    assert dict(_build.LAUNCHES) == {"row_probe": 1}
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switches", list(cuda_probes.EIGH_VARIANTS.values()),
+                         ids=list(cuda_probes.EIGH_VARIANTS))
+def test_eigh_probe_kernel_matches_plain(cuda, switches):
+    # one sweep at n=8: the chain is short enough for elementwise parity
+    a = bench_eigh_variants.make_inputs(8, 512, cuda)
+    got = cuda_probes.eigh_probe(a, 1, **switches)
+    want = cuda_probes.eigh_probe_plain(a, 1, **switches)
+    assert dict(_build.LAUNCHES) == {"eigh_probe": 1}
+    torch.testing.assert_close(got.w, want.w, rtol=0,
+                               atol=1e-4 * a.abs().max().item())
+    for x, y in zip(got[1:], want[1:]):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=0)
+
+    # the tool's size, where the chain is chaotic: the invariants, finite w,
+    # and the same bits at every matrices-per-block value
+    big = bench_eigh_variants.make_inputs(device=cuda)
+    out = cuda_probes.eigh_probe(big, bench_eigh_variants.SWEEPS, **switches)
+    assert bool(torch.isfinite(out.w).all())
+    errs = bench_eigh_variants.invariant_errors(big, out, switches["do_rows"],
+                                                switches["do_cols"])
+    assert max(errs.values()) <= 1e-5, errs
+    for per_block in (1, cuda_probes.MAX_PER_BLOCK):
+        other = cuda_probes.eigh_probe(big, bench_eigh_variants.SWEEPS,
+                                       per_block=per_block, **switches)
+        for x, y in zip(other, out):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_eigh_probe_rejects_odd_n(cuda):
+    a = bench_eigh_variants.make_inputs(8, 4, cuda)[:, :7, :7]
+    with pytest.raises(ValueError, match="even n"):
+        cuda_probes.eigh_probe(a, 1)
+    assert not _build.LAUNCHES
