@@ -26,6 +26,24 @@
    without i == j in the schedule, and eigh_probe against its plain version
    at n=8 over one sweep in all five variants; the plain eigh probe at the
    tool's size is timed over one call.
+6. The grid layer (``llckbdm_tpu_torch.parallel``) at config-5 size: a
+   GridRunner sweep of 256x256 = 65,536 voxels of tools/config5_run.py's
+   signal family in 32 shards of 2048, refined (top 16 clusters, 6 GN
+   iterations), with its wall time (host copies and .npz writes included)
+   and peak device memory.  All four main-path kernels must have been
+   launched by GridRunner.run and no plain version handed a CUDA tensor;
+   every voxel keeps >= 5 refined lines; the 8 voxels with the largest last
+   GN step meet the 1e-8 oracle gate.  Then 3 shard files are deleted: the
+   rerun computes exactly 3 shards and gathers bit for bit what the first
+   run gathered.
+7. Two ranks on the one card over gloo (spawned processes, file://
+   rendezvous): with mesh data=1, time=2, the time-sharded refinement of
+   the main path's lines against the single-process refinement (z within
+   5e-9, d within 5e-8), timed beside it, and fit_and_refine_grid on the
+   V=2048 signals at C=16 (the same bounds, the 1e-8 oracle gate on its 8
+   worst voxels); with data=2, time=1, fit_grid_sharded's two row blocks against
+   the main path's fit (counts and masks exact, lines within 1e-4).  A
+   failed child fails the script.
 
 The oracle (llckbdm_tpu/oracle/reference.py, numpy and scipy only) is loaded
 by file path so that nothing of JAX is imported.  Nothing catches a failure.
@@ -39,16 +57,21 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEVICE = "cuda"
 N, DWELL, VOXELS = 512, 5e-4, 2048
 M_VALUES = tuple(range(120, 257, 4))
 REFINE_CLUSTERS, GN_ITERS, GATE_VOXELS = 16, 6, 8
+MAIN_KERNELS = ("eig_cs", "gram_svd", "cholqr_rinv", "chol_solve")
+GRID_SIDE, GRID_SHARD, GRID_DELETE = 256, 2048, 3
 BASE_LINES = np.array([
     [1.0, 0.05, -120.0, 0.1],
     [0.8, 0.08, -40.0, 0.0],
@@ -86,6 +109,59 @@ def make_signals(oracle, v: int):
     sigs += 1e-4 * (rng.standard_normal((v, N))
                     + 1j * rng.standard_normal((v, N)))
     return sigs, truths
+
+
+def make_grid_signals(v: int, chunk: int = 4096):
+    """tools/config5_run.py:29-52's signals, the same draws from seed 0: the
+    config-1 lines with per-voxel jitter of amplitude and frequency, plus
+    complex noise 1e-4.  The lines are summed ``chunk`` voxels at a time;
+    the vectorised form holds a (v, 5, N) complex array, ~2.7 GB at
+    v = 65,536."""
+    rng = np.random.default_rng(0)
+    amp = BASE_LINES[:, 0] * (1.0 + rng.normal(scale=0.05, size=(v, 5)))
+    t2 = np.broadcast_to(BASE_LINES[:, 1], (v, 5))
+    freq = BASE_LINES[:, 2] + rng.normal(scale=2.0, size=(v, 5))
+    ph = np.broadcast_to(BASE_LINES[:, 3], (v, 5))
+    noise = 1e-4 * (rng.standard_normal((v, N))
+                    + 1j * rng.standard_normal((v, N)))
+    t = np.arange(N) * DWELL
+    sigs = np.empty((v, N), np.complex128)
+    for s in range(0, v, chunk):
+        z = (2j * np.pi * freq[s:s + chunk, :, None]
+             - 1.0 / t2[s:s + chunk, :, None]) * t
+        sigs[s:s + chunk] = np.sum(amp[s:s + chunk, :, None]
+                                   * np.exp(1j * ph[s:s + chunk, :, None] + z),
+                                   axis=1)
+    sigs += noise
+    return sigs, np.stack([amp, t2, freq, ph], axis=-1)
+
+
+def rows_of(z, d, mask) -> np.ndarray:
+    """One voxel's refined poles and amplitudes (numpy) -> refined_to_np's
+    float64 (A, T2, f, phase) rows sorted by frequency."""
+    from llckbdm_tpu_torch.solver.refine import RefinedLines, refined_to_np
+
+    z, d, mask = (torch.from_numpy(np.asarray(x)) for x in (z, d, mask))
+    return refined_to_np(RefinedLines(z=z, d=d, mask=mask, lines=None,
+                                      gn_step=None), DWELL)
+
+
+def gate_errors(oracle, voxels, sigs, truths, init_of, est_of) -> list:
+    """Per voxel, the largest error of the refined lines against the float64
+    oracle's Gauss-Newton polish (20 iterations) from init_of(i)."""
+    errs = []
+    for i in voxels:
+        est = est_of(i)
+        olines = oracle.refine(init_of(i), sigs[i], DWELL, iters=20)
+        sel_o = oracle.match_lines(olines, truths[i])
+        sel_e = oracle.match_lines(est, truths[i])
+        errs.append(float(oracle.line_errors(est[sel_e], olines[sel_o]).max()))
+    return errs
+
+
+def largest_step_voxels(gn_step: np.ndarray) -> list:
+    """The GATE_VOXELS voxels with the largest last GN step."""
+    return np.argsort(-gn_step.max(axis=-1), kind="stable")[:GATE_VOXELS].tolist()
 
 
 def timed(label: str, kernel, plain) -> dict:
@@ -343,6 +419,222 @@ def probe_checks() -> dict:
     return out
 
 
+def grid_phase(oracle, cfg, rcfg) -> dict:
+    """GridRunner at config-5 size, then a resume after deleting shards."""
+    from llckbdm_tpu_torch.ops import _build
+    from llckbdm_tpu_torch.parallel import GridRunner
+
+    v = GRID_SIDE * GRID_SIDE
+    t0 = time.perf_counter()
+    sigs, truths = make_grid_signals(v)
+    print(f"grid: {v} voxels synthesized in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    with tempfile.TemporaryDirectory() as out_dir:
+        runner = GridRunner(out_dir, DWELL, cfg, DEVICE, shard_size=GRID_SHARD,
+                            refine=rcfg, refine_clusters=REFINE_CLUSTERS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        shards = runner.run(sigs)
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_ON_CUDA)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"grid: GridRunner.run computed {shards} shards of {GRID_SHARD} "
+              f"in {wall:.3f} s = {v / wall:.1f} refined fits/s (host copies "
+              f"and .npz writes included); peak {peak_gb:.2f} GiB; launches "
+              f"{launches}; plain on CUDA {plain}", flush=True)
+        check(shards == v // GRID_SHARD, f"computed {shards} shards")
+        for name in MAIN_KERNELS:
+            check(launches.get(name, 0) > 0,
+                  f"{name} was not launched by GridRunner.run")
+        check(not any(plain.values()), f"a plain version ran on CUDA: {plain}")
+
+        first = runner.gather(v)
+        check(first["refined_z"].shape == (v, REFINE_CLUSTERS)
+              and first["refined_z"].dtype == np.complex128,
+              "gathered refined_z shape or dtype")
+        live = first["refined_mask"] > 0.5
+        check(bool(np.isfinite(first["refined_z"][live]).all()
+                   and np.isfinite(first["refined_d"][live]).all()),
+              "non-finite refined lines in the grid")
+        n_lines = live.sum(axis=1)
+        check(bool((n_lines >= 5).all()), "a grid voxel lost a genuine line")
+        voxels = largest_step_voxels(first["gn_step"])
+
+        errs = gate_errors(
+            oracle, voxels, sigs, truths, lambda i: _cons_rows(first, i),
+            lambda i: rows_of(first["refined_z"][i], first["refined_d"][i],
+                              first["refined_mask"][i]))
+        gate = max(errs)
+        print(f"grid: refined lines per voxel min {n_lines.min()} max "
+              f"{n_lines.max()}; vs float64 oracle GN on voxels {voxels}: "
+              f"max err {gate:.3e} (< 1e-8)", flush=True)
+        check(gate < 1e-8, f"grid missed the 1e-8 oracle gate: {gate:.3e}")
+
+        files = sorted(pathlib.Path(out_dir).glob("shard_*.npz"))
+        gone = [files[0], files[len(files) // 2], files[-1]][:GRID_DELETE]
+        for f in gone:
+            f.unlink()
+        t0 = time.perf_counter()
+        redone = runner.run(sigs)
+        t_redo = time.perf_counter() - t0
+        again = runner.gather(v)
+        same = all(np.array_equal(first[k], again[k]) for k in first)
+        print(f"grid: deleted {[f.name for f in gone]}; the rerun computed "
+              f"{redone} shards in {t_redo:.3f} s; gather bitwise equal: "
+              f"{same}", flush=True)
+        check(redone == GRID_DELETE, f"the rerun computed {redone} shards")
+        check(first.keys() == again.keys() and same,
+              "the rerun's gather differs from the first")
+    return {"voxels": v, "shards": shards, "wall_s": wall,
+            "fits_per_s": v / wall, "peak_gib": peak_gb,
+            "gate_max_err": gate, "rerun_shards": redone,
+            "rerun_s": t_redo, "launches": launches}
+
+
+def _cons_rows(res: dict, i: int) -> np.ndarray:
+    """Voxel i's top REFINE_CLUSTERS consolidated lines from a gathered
+    grid, as float64 (A, T2, f, phase) rows sorted by frequency."""
+    top = slice(0, REFINE_CLUSTERS)
+    arr = np.stack([res[k][i, top] for k in ("amplitude", "t2", "frequency",
+                                              "phase")], axis=1)
+    arr = arr[res["mask"][i, top] > 0.5].astype(np.float64)
+    return arr[np.argsort(arr[:, 2])]
+
+
+def two_rank_child(rank: int, rdv: str, out_dir: str, sigs: np.ndarray,
+                   lines: tuple, cfg, rcfg) -> None:
+    """One of two ranks on the one card (gloo): the time-sharded refinement
+    of `lines` timed, fit_and_refine_grid (data=1, time=2), then
+    fit_grid_sharded (data=2, time=1); saved to out_dir/rank{rank}.npz."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from llckbdm_tpu_torch import LineList
+    from llckbdm_tpu_torch.parallel import (distributed_init,
+                                            fit_and_refine_grid,
+                                            fit_grid_sharded, make_mesh,
+                                            refine_grid_timesharded)
+
+    distributed_init(f"file://{rdv}", 2, rank, backend="gloo",
+                     device="cuda:0")
+    try:
+        mesh = make_mesh({"data": 1, "time": 2}, "cuda")
+        block = LineList(*(torch.as_tensor(x, device=DEVICE) for x in lines))
+        ms = []
+        for _ in range(4):                        # the first is a warm-up
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            refined, _ = refine_grid_timesharded(sigs, block, DWELL, mesh, rcfg)
+            torch.cuda.synchronize()
+            dist.barrier()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out = {"ts_z": refined.z.cpu().numpy(), "ts_d": refined.d.cpu().numpy(),
+               "ts_ms": np.array(ms[1:])}
+        # fit_and_refine_grid refines every consolidated slot, and the GN
+        # solve kernel takes 2C <= 32: so C = REFINE_CLUSTERS, whose slots
+        # are the first REFINE_CLUSTERS of cfg's (clusters are count-sorted)
+        (chain, counts), _ = fit_and_refine_grid(
+            sigs, DWELL, dataclasses.replace(cfg, max_clusters=REFINE_CLUSTERS),
+            mesh, rcfg)
+        out.update(chain_z=chain.z.cpu().numpy(), chain_d=chain.d.cpu().numpy(),
+                   chain_mask=chain.mask.cpu().numpy(),
+                   chain_gn_step=chain.gn_step.cpu().numpy(),
+                   chain_counts=counts.cpu().numpy())
+        del refined, chain
+        mesh = make_mesh({"data": 2, "time": 1}, "cuda")
+        (cons, _, counts, _), rows = fit_grid_sharded(sigs, DWELL, cfg, mesh)
+        out.update({f"fit_{k}": x.cpu().numpy()
+                    for k, x in zip(LineList._fields, cons)},
+                   fit_counts=counts.cpu().numpy(), fit_rows=np.array(rows))
+        np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_and_wait(fn, nprocs: int, args: tuple, timeout: float) -> None:
+    """fn(rank, *args) in nprocs spawned processes; a failed child raises
+    (and the others are killed), as does one still running at the timeout."""
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                proc.kill()
+                proc.join()
+            raise RuntimeError(f"chip_smoke: children still running after "
+                               f"{timeout} s")
+
+
+def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single, cfg,
+                   rcfg) -> dict:
+    """Two ranks on the one card over gloo, held against the single-process
+    results of the main path (`cons`, `counts`, and `single`: refine_grid of
+    `lines`)."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_and_wait(two_rank_child, 2,
+                       (str(pathlib.Path(tmp) / "rdv"), tmp, sigs,
+                        tuple(x.cpu().numpy() for x in lines), cfg, rcfg),
+                       timeout=600)
+        t_spawn = time.perf_counter() - t0
+        outs = [dict(np.load(pathlib.Path(tmp) / f"rank{r}.npz"))
+                for r in range(2)]
+    z1, d1 = single.z.cpu().numpy(), single.d.cpu().numpy()
+    errs = {}
+    for prefix in ("ts", "chain"):
+        check(np.array_equal(outs[0][f"{prefix}_z"], outs[1][f"{prefix}_z"])
+              and np.array_equal(outs[0][f"{prefix}_d"],
+                                 outs[1][f"{prefix}_d"]),
+              f"{prefix}: the two time ranks disagree")
+        errs[prefix] = (float(np.abs(outs[0][f"{prefix}_z"] - z1).max()),
+                        float(np.abs(outs[0][f"{prefix}_d"] - d1).max()))
+        check(errs[prefix][0] <= 5e-9 and errs[prefix][1] <= 5e-8,
+              f"{prefix}: time-sharded vs single-process refine |dz|, |dd| "
+              f"{errs[prefix]} (bounds 5e-9, 5e-8)")
+    chain = outs[0]
+    check(np.array_equal(chain["chain_counts"],
+                         counts[:, :REFINE_CLUSTERS].cpu().numpy()),
+          "fit_and_refine_grid's cluster counts differ from the main path's")
+    voxels = largest_step_voxels(chain["chain_gn_step"])
+    gate = max(gate_errors(
+        oracle, voxels, sigs, truths, lambda i: truths[i],
+        lambda i: rows_of(chain["chain_z"][i], chain["chain_d"][i],
+                          chain["chain_mask"][i])))
+    check(gate < 1e-8, f"fit_and_refine_grid missed the 1e-8 gate: {gate:.3e}")
+
+    fit = {k: np.concatenate([o[f"fit_{k}"] for o in outs])
+           for k in ("amplitude", "t2", "frequency", "phase", "mask",
+                     "counts")}
+    check([list(o["fit_rows"]) for o in outs] == [[0, VOXELS // 2],
+                                                  [VOXELS // 2, VOXELS]],
+          "fit_grid_sharded's row blocks")
+    check(np.array_equal(fit["counts"], counts.cpu().numpy())
+          and np.array_equal(fit["mask"], cons.mask.cpu().numpy()),
+          "fit_grid_sharded's counts or masks differ from fit_grid's")
+    # tests/test_parallel.py's bound: |a - b| <= 1e-4 + 1e-4 |b|
+    fit_err = max(float((np.abs(fit[k] - x.cpu().numpy())
+                         / (1e-4 + 1e-4 * np.abs(x.cpu().numpy()))).max())
+                  for k, x in zip(("amplitude", "t2", "frequency", "phase"),
+                                  cons))
+    check(fit_err <= 1.0, f"fit_grid_sharded's lines differ by {fit_err:.3e} "
+          f"of the bound 1e-4 + 1e-4 |b|")
+    ts_ms = float(np.median(outs[0]["ts_ms"]))
+    print(f"two ranks on one card (gloo): time-sharded refine {ts_ms:.1f} ms "
+          f"(runs {outs[0]['ts_ms'].round(1).tolist()}); |dz|, |dd| vs single "
+          f"{errs['ts']}; fit_and_refine_grid |dz|, |dd| {errs['chain']}, "
+          f"oracle gate {gate:.3e} on voxels {voxels}; fit_grid_sharded "
+          f"counts and masks exact, lines within {fit_err:.3e} of the bound "
+          f"1e-4 + 1e-4 |b|; children "
+          f"{t_spawn:.1f} s", flush=True)
+    return {"ts_refine_ms": ts_ms, "ts_err": errs["ts"],
+            "chain_err": errs["chain"], "chain_gate": gate,
+            "sharded_fit_err": fit_err, "children_s": t_spawn}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -435,25 +727,39 @@ def main() -> int:
           f"{offdiag:.3e} (< 1e-2)")
     check(offdiag < 1e-2, f"Jacobi did not converge: {offdiag:.3e}")
 
-    gn = refined.gn_step.max(dim=-1).values
-    worst_voxels = torch.argsort(gn, descending=True)[:GATE_VOXELS].tolist()
-    errs = []
-    for i in worst_voxels:
-        init = line_list_to_np(LineList(*(x[i] for x in top(cons))))
-        est = refined_to_np(refined._replace(z=refined.z[i], d=refined.d[i],
-                                             mask=refined.mask[i]), DWELL)
-        olines = oracle.refine(init, sigs[i], DWELL, iters=20)
-        sel_o = oracle.match_lines(olines, truths[i])
-        sel_e = oracle.match_lines(est, truths[i])
-        errs.append(float(oracle.line_errors(est[sel_e], olines[sel_o]).max()))
+    gn = refined.gn_step.cpu().numpy()
+    worst_voxels = largest_step_voxels(gn)
+    errs = gate_errors(
+        oracle, worst_voxels, sigs, truths,
+        lambda i: line_list_to_np(LineList(*(x[i] for x in top(cons)))),
+        lambda i: refined_to_np(refined._replace(
+            z=refined.z[i], d=refined.d[i], mask=refined.mask[i]), DWELL))
     gate = max(errs)
     print(f"refined vs float64 oracle GN on voxels {worst_voxels} (largest "
-          f"last GN step {gn[worst_voxels[0]].item():.3e}): max err "
+          f"last GN step {gn[worst_voxels[0]].max():.3e}): max err "
           f"{gate:.3e} (< 1e-8); per voxel {errs}")
     check(gate < 1e-8, f"refined lines missed the 1e-8 oracle gate: {gate:.3e}")
 
     # --- the tool kernels -------------------------------------------------
     results.update(probe_checks())
+
+    # --- the grid layer ---------------------------------------------------
+    grid = grid_phase(oracle, cfg, rcfg)
+    from llckbdm_tpu_torch.parallel import refine_grid
+    single_ms = []
+    for _ in range(4):                            # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = refine_grid(c64, top(cons), DWELL, rcfg)
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    two = two_rank_phase(oracle, sigs, truths, cons, counts, top(cons),
+                         single, cfg, rcfg)
+    two["single_refine_ms"] = float(np.median(single_ms[1:]))
+    print(f"single-process refine_grid of the same lines: "
+          f"{two['single_refine_ms']:.1f} ms (runs "
+          f"{np.round(single_ms[1:], 1).tolist()}); time-sharded over two "
+          f"ranks: {two['ts_refine_ms']:.1f} ms", flush=True)
 
     sources = {
         "eig_cs": ("llckbdm_tpu_torch/csrc/eig_cs.cu",
@@ -475,7 +781,8 @@ def main() -> int:
                         "replaces": replaces, **results[name]})
     print(json.dumps({"voxels": VOXELS, "fit_ms": t_fit * 1e3,
                       "refine_ms": t_refine * 1e3, "peak_gib": peak_gb,
-                      "jacobi_offdiag_rel": offdiag, "gate_max_err": gate}))
+                      "jacobi_offdiag_rel": offdiag, "gate_max_err": gate,
+                      "grid": grid, "two_ranks": two}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ same module and public names, native complex tensors, and where the JAX
 package ran a Pallas TPU kernel a CUDA kernel built from ``csrc/`` at first
 use (ops.cuda_jacobi, ops.cuda_linalg; the TPU tools' two kernels in
 ops.cuda_probes, driven by the entry points in ``tools/``).  On a CPU tensor
-every kernel wrapper runs its plain PyTorch version instead.  Imports torch
-and numpy, never jax.
+every kernel wrapper runs its plain PyTorch version instead.  The voxel-grid
+layer (mesh, sharded and time-sharded grid fits, the resumable GridRunner)
+is ``llckbdm_tpu_torch.parallel``, on torch.distributed.  Imports torch and
+numpy, never jax.
 
     from llckbdm_tpu_torch import (
         sample_signal, LineList, line_list_from_np, line_list_to_np,

@@ -128,14 +128,15 @@ def llc_kbdm_fit(c: torch.Tensor, dwell: float, cfg: LlcKbdmConfig,
 def llc_kbdm(data: np.ndarray, dwell: float, m_range, p: int = 24,
              eps: float = 2e-4, min_samples: int = 20, *,
              damping_weight: float = 0.0, max_clusters: int = 32,
-             refine_iters: int = 0, device=None):
+             refine_iters: int = 0, device="cuda"):
     """NumPy-in / NumPy-out entry point with the reference's signature
     ``llc_kbdm(data, dwell, m_range, p, eps, min_samples)``.
 
     data : (N,) or (V, N) complex time-domain signal(s).
     refine_iters > 0 additionally runs the Gauss-Newton polish (the stage
-    that meets the 1e-8 oracle gate).  device: where to run (default: the
-    first CUDA device when there is one, else the CPU).
+    that meets the 1e-8 oracle gate).  device: where to run; the default
+    "cuda" raises where there is no CUDA device (pass device="cpu" to run
+    the kernels' plain versions on the CPU).
 
     Returns (consolidated, pooled, counts):
       consolidated : (k, 4) [or list of per-voxel (k_v, 4)] float64 rows of
@@ -143,8 +144,6 @@ def llc_kbdm(data: np.ndarray, dwell: float, m_range, p: int = 24,
       pooled       : same layout for ALL pooled sweep lines;
       counts       : (C,) [or (V, C)] member counts per cluster slot.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     data = np.asarray(data, np.complex128)
     single = data.ndim == 1
     batch = data[None] if single else data

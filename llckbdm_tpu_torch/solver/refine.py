@@ -17,6 +17,11 @@ The normal matrix G = J^H J and the solve stay float32, as in the JAX
 package (the correction direction only needs f32 accuracy), so the solve is
 the f32 chol_solve kernel on the (2C, 2C) normal equations.  With a few
 iterations the poles converge to the float64 least-squares fixed point.
+
+Time-sharded mode (``group``/``t_offset``) is the counterpart of the JAX
+package's ``axis_name``/``t_offset``: each rank of a ``torch.distributed``
+process group holds one contiguous block of the time axis, and G and the
+right-hand side are summed over the group by one all-reduce.
 """
 from __future__ import annotations
 
@@ -25,9 +30,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.linalg import hermitian_solve, highest_precision
-from ..ops.powers import cpowers
+from ..ops.powers import cpow_fixed, cpowers
 from ..signals import LineList
 
 
@@ -46,7 +52,8 @@ class RefineConfig:
     iters: int = 3
     f32_iters: int = 0           # cheap plain-f32 GN iterations run BEFORE
                                  # the `iters` f64-residual ones: the early
-                                 # steps only need a descent direction
+                                 # steps only need a descent direction.
+                                 # Ignored in time-sharded mode.
     ridge: float = 1e-12         # relative Tikhonov in the GN solve
     max_step: float = 0.1        # clip on |delta z| per iteration
     eigh_sweeps: int = 10        # kept for parity with the JAX config; the
@@ -58,14 +65,39 @@ def _block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.conj() @ b.transpose(-1, -2)
 
 
+def _sum_over_group(g: torch.Tensor, rhs: torch.Tensor, group):
+    """Sum this rank's partial G (complex64) and rhs (complex128) over the
+    group by ONE all-reduce of a float64 buffer.  The rhs is summed before
+    it is rounded to complex64, which keeps at least what the JAX package's
+    (hi, lo) psum keeps; G's float32 partials are summed in float64 and
+    rounded once."""
+    g_re = torch.view_as_real(g).to(torch.float64)
+    r_re = torch.view_as_real(rhs)
+    buf = torch.cat([g_re.reshape(-1), r_re.reshape(-1)])
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    k = g_re.numel()
+    g = torch.view_as_complex(buf[:k].reshape(g_re.shape).to(torch.float32))
+    return g, torch.view_as_complex(buf[k:].reshape(r_re.shape))
+
+
 @highest_precision()
 def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
-                 cfg: RefineConfig = RefineConfig()) -> RefinedLines:
+                 cfg: RefineConfig = RefineConfig(), *, group=None,
+                 t_offset: int | None = None) -> RefinedLines:
     """Polish a consolidated LineList against the signal.
 
     c     : (..., N) complex signal (cast to complex128; pass the float64
             data, not its complex64 rounding)
     lines : LineList (..., C) f32 initial values (masked slots ignored)
+
+    Time-sharded mode: ``c`` is this rank's block of the time axis and
+    ``t_offset`` its global start index; ``group`` is the
+    ``torch.distributed`` process group over the time blocks, whose ranks
+    hold the same voxels and bitwise-equal ``lines``.  The powers are
+    shifted to global time (P <- z^t0 P, in complex128), G and the rhs are
+    summed over the group, and the ridge is taken from the summed G, so
+    every rank takes the same steps.  ``cfg.f32_iters`` is ignored in this
+    mode, as in the JAX package.
     """
     c = c.to(torch.complex128)
     n = c.shape[-1]
@@ -81,12 +113,16 @@ def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
     z = torch.where(mask, torch.polar(decay, theta), 0.0).to(torch.complex128)
     d = torch.where(mask, torch.polar(lines.amplitude, lines.phase),
                     0.0).to(torch.complex128)
-    ns = torch.arange(n, dtype=torch.float32, device=c.device)
+    t0 = 0 if t_offset is None else int(t_offset)
+    ns = (t0 + torch.arange(n, device=c.device)).to(torch.float32)
 
     def gn_step(z, d, exact):
         z32, d32 = z.to(torch.complex64), d.to(torch.complex64)
         if exact:
             p = cpowers(z, n)                                # (..., C, N) f64
+            if t0:
+                # shift the local block to global time: P <- z^t0 * P
+                p = cpow_fixed(z, t0)[..., None] * p
             r = c - torch.sum(d[..., None] * p, dim=-2)      # f64 residual
             p32 = p.to(torch.complex64)
         else:
@@ -108,9 +144,13 @@ def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
         g = torch.cat([torch.cat([gvv, gvd], dim=-1),
                        torch.cat([gvd.transpose(-1, -2).conj(), gdd], dim=-1)],
                       dim=-2)
-        # rhs = J^H r, summed in the residual's precision, then f32
+        # rhs = J^H r, summed in the residual's precision (over the time
+        # blocks too), then f32
         jac = torch.cat([p32, dj], dim=-2).to(r.dtype)
-        rhs = (jac.conj() @ r[..., None])[..., 0].to(torch.complex64)
+        rhs = (jac.conj() @ r[..., None])[..., 0]
+        if group is not None:
+            g, rhs = _sum_over_group(g, rhs, group)
+        rhs = rhs.to(torch.complex64)
 
         # masked slots: identity rows
         pair = mask2[..., :, None] & mask2[..., None, :]
@@ -136,7 +176,8 @@ def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
         return z, d, torch.where(mask, step, 0.0)
 
     gn_step_norm = torch.zeros_like(lines.amplitude)
-    for _ in range(cfg.f32_iters):
+    sharded = group is not None or t_offset is not None
+    for _ in range(0 if sharded else cfg.f32_iters):
         z, d, gn_step_norm = gn_step(z, d, exact=False)
     for _ in range(cfg.iters):
         z, d, gn_step_norm = gn_step(z, d, exact=True)

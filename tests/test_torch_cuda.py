@@ -15,8 +15,13 @@ import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
 
+import torch_grid_worker as worker
 from llckbdm_tpu_torch.ops import _build, cuda_jacobi, cuda_linalg, cuda_probes
+from llckbdm_tpu_torch.parallel import GridRunner
+from llckbdm_tpu_torch.pipeline.llckbdm import LlcKbdmConfig
+from llckbdm_tpu_torch.signals import LineList, line_list_from_np, sample_signal
 from llckbdm_tpu_torch.solver.kbdm import KbdmConfig
+from llckbdm_tpu_torch.solver.refine import RefineConfig, refine_lines
 from llckbdm_tpu_torch.tools import bench_eigh_variants, kernel_smoke
 
 CFG = KbdmConfig()
@@ -189,3 +194,67 @@ def test_eigh_probe_rejects_odd_n(cuda):
     with pytest.raises(ValueError, match="even n"):
         cuda_probes.eigh_probe(a, 1)
     assert not _build.LAUNCHES
+
+
+# --- the grid layer on the card (tests/test_parallel.py's small grid) -----
+
+GRID_CFG = LlcKbdmConfig(
+    m_values=(16, 24, 32), eps=5e-3, min_samples=2, max_clusters=4,
+    kbdm=KbdmConfig(p=4, oversample=4, subspace_iters=1, eigh_sweeps=4,
+                    eig_sweeps=6))
+DWELL = 5e-4
+
+
+def _small_grid(v=8, n=64):
+    """v noiseless 2-line voxels (jittered frequencies) and their truths
+    with an f32-stage-sized frequency error, as (v, 4) line arrays."""
+    rng = np.random.default_rng(7)
+    base = np.array([[1.0, 0.05, -60.0, 0.2], [0.7, 0.08, 45.0, -0.4]])
+    truths = np.stack([base + [[0, 0, rng.normal(), 0], [0, 0, rng.normal(), 0]]
+                       for _ in range(v)])
+    sigs = np.stack([sample_signal(line_list_from_np(t), n, DWELL).numpy()
+                     for t in truths])
+    init = [line_list_from_np(t + [0, 0, 0.05, 0], k=4) for t in truths]
+    lines = tuple(np.stack([x[j].numpy() for x in init]) for j in range(5))
+    return sigs, lines
+
+
+@pytest.mark.cuda
+def test_timesharded_refine_two_ranks_one_card(cuda, tmp_path):
+    """Two ranks on one card over gloo (time=2): within 5e-9 (z) and 5e-8
+    (d) of the single-process refine, and the same bits on both ranks."""
+    sigs, lines = _small_grid()
+    rcfg = RefineConfig(iters=3)
+    ctx = worker.start(worker.grid_ranks, 2, 2, str(tmp_path / "rdv"),
+                       str(tmp_path), "cuda:0", {"data": 1, "time": 2}, sigs,
+                       lines, DWELL, GRID_CFG, rcfg)
+    worker.join(ctx, 600)
+    outs = worker.load(tmp_path, 2)
+    single = refine_lines(torch.as_tensor(sigs, device=cuda),
+                          LineList(*(torch.as_tensor(x, device=cuda)
+                                     for x in lines)), DWELL, rcfg)
+    np.testing.assert_allclose(outs[0]["ts_z"], single.z.cpu().numpy(),
+                               rtol=0, atol=5e-9)
+    np.testing.assert_allclose(outs[0]["ts_d"], single.d.cpu().numpy(),
+                               rtol=0, atol=5e-8)
+    for k in outs[0]:
+        assert np.array_equal(outs[0][k], outs[1][k]), k
+
+
+@pytest.mark.cuda
+def test_gridrunner_deleted_shard_bitwise_on_card(cuda, tmp_path):
+    """A deleted shard recomputed on the card gathers bit for bit as before,
+    through all four main-path kernels and no plain version."""
+    sigs, _ = _small_grid(v=12)
+    r = GridRunner(tmp_path, DWELL, GRID_CFG, cuda, shard_size=4,
+                   refine=RefineConfig(iters=3), refine_clusters=4)
+    assert r.run(sigs) == 3
+    assert set(_build.LAUNCHES) == {"cholqr_rinv", "gram_svd", "eig_cs",
+                                    "chol_solve"}
+    assert not _build.PLAIN_ON_CUDA
+    first = r.gather(12)
+    (tmp_path / "shard_00000004_00000008.npz").unlink()
+    assert r.run(sigs) == 1
+    again = r.gather(12)
+    for k in first:
+        assert np.array_equal(first[k], again[k]), k

@@ -154,8 +154,19 @@ def test_llc_kbdm_numpy_entry_point(five_peak_signal, five_peak_params):
                     device="cpu")
 
 
+def test_llc_kbdm_default_device_is_cuda(five_peak_signal):
+    """Without a CUDA device the default raises instead of running on the
+    CPU; callers that want the CPU say device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    sig, dwell = five_peak_signal
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
+        lp.llc_kbdm(sig, dwell, (120,), p=16)
+
+
 def test_import_does_not_load_jax():
-    code = ("import sys, llckbdm_tpu_torch, llckbdm_tpu_torch.convert; "
+    code = ("import sys, llckbdm_tpu_torch, llckbdm_tpu_torch.convert, "
+            "llckbdm_tpu_torch.parallel; "
             "sys.exit(1 if 'jax' in sys.modules or 'llckbdm_tpu' in "
             "sys.modules else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
