@@ -8,16 +8,26 @@
    ``llckbdm_tpu_torch/csrc`` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (eig_cs on the production reduced matrices of the V=2048
-   sweep) and once more at an odd size, timed with CUDA events
-   (``llckbdm_tpu_torch.tools.timing.cuda_ms``: median of 5 windows of up to
-   200 launches or 100 ms; a call over 100 ms is timed once).
+   sweep) and once more at an odd size (gram_svd also at k=32, chol_solve
+   also at the 64 x 64 Gauss-Newton solve of 32 clusters), timed with CUDA
+   events (``llckbdm_tpu_torch.tools.timing.cuda_ms``: median of 5 windows
+   of up to 200 launches or 100 ms; a call over 100 ms is timed once),
+   beside the card's least time for the same work
+   (``llckbdm_tpu_torch.tools.bounds``) and, where one PyTorch call
+   computes the same function, that call's time (``LIBRARY``: linalg's
+   eigvals, svd and solve, yardsticks the port never calls).  chol_solve is
+   timed at three shapes: the amplitudes, and the 32 x 32 and 64 x 64
+   Gauss-Newton solves.  After the main path, the kernels are printed in
+   the order a redesign should take them.
 3. The main path at the bench's north-star size (V=2048 voxels, N=512,
    m = 120..256 step 4, p=16): llc_kbdm_fit, then refine_lines on the top
    16 clusters with 6 Gauss-Newton iterations.  Every kernel must have been
    launched by that run and no plain version handed a CUDA tensor.
 4. Gates: the Jacobi off-diagonal counter below 1e-2 on 32 voxels, and the
    refined lines within 1e-8 of the float64 oracle's Gauss-Newton polish on
-   the 8 voxels with the largest last GN step.
+   the 8 voxels with the largest last GN step.  Then one more run of the
+   main path under torch.profiler: the device's busy time, its idle share
+   of the unprofiled run's wall time, and the largest consumers.
 5. The two tool kernels, each through its tool's path with the launch
    counts set to 0 before and read after: ``tools.kernel_smoke.run``
    (row_probe against its numpy loop) and ``tools.bench_eigh_variants``'
@@ -40,19 +50,25 @@
    rendezvous): with mesh data=1, time=2, the time-sharded refinement of
    the main path's lines against the single-process refinement (z within
    5e-9, d within 5e-8), timed beside it, and fit_and_refine_grid on the
-   V=2048 signals at C=16 (the same bounds, the 1e-8 oracle gate on its 8
-   worst voxels); with data=2, time=1, fit_grid_sharded's two row blocks against
-   the main path's fit (counts and masks exact, lines within 1e-4).  A
-   failed child fails the script.
+   V=2048 signals at the configuration's max_clusters=32 (64 x 64 GN
+   solves) against the single-process refinement of the same 32 slots
+   (the same bounds, the 1e-8 oracle gate on its 8 worst voxels; on each
+   rank, counted from 0 just before it, chol_solve launched at least 6
+   times and no plain version handed a CUDA tensor; on rank 0, which fits,
+   every main-path kernel launched); with
+   data=2, time=1, fit_grid_sharded's two row blocks against the main
+   path's fit (counts and masks exact, lines within 1e-4).  A failed child
+   fails the script.
 
-The oracle (llckbdm_tpu/oracle/reference.py, numpy and scipy only) is loaded
-by file path so that nothing of JAX is imported.  Nothing catches a failure.
-The last line is {"ok": true, "device": {...}}.
+The float64 oracle is the port's own (``llckbdm_tpu_torch/oracle.py``,
+numpy and scipy only): nothing of JAX or of the JAX package is loaded.  The
+script exits with 2 where there is no CUDA device or no package beside it.
+Nothing catches a failure of the port.  The last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import pathlib
 import subprocess
@@ -79,19 +95,22 @@ BASE_LINES = np.array([
     [0.5, 0.10, 90.0, 0.3],
     [0.9, 0.06, 200.0, 0.0],
 ])
+# The library yardsticks: for each kernel that one PyTorch call computes, that
+# call's name and the call.  timed() runs it beside the kernel on the same
+# inputs; nothing else calls it, and the port never does.
+LIBRARY = {
+    "eig_cs": ("torch.linalg.eigvals", lambda a: torch.linalg.eigvals(a)),
+    "gram_svd": ("torch.linalg.svd(full_matrices=False)",
+                 lambda m: torch.linalg.svd(m, full_matrices=False)),
+    "chol_solve": ("torch.linalg.solve on G + shift I",
+                   lambda g_shifted, rhs: torch.linalg.solve(g_shifted,
+                                                             rhs[..., None])),
+}
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def load_oracle():
-    path = ROOT / "llckbdm_tpu" / "oracle" / "reference.py"
-    spec = importlib.util.spec_from_file_location("llckbdm_oracle", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def make_signals(oracle, v: int):
@@ -164,14 +183,37 @@ def largest_step_voxels(gn_step: np.ndarray) -> list:
     return np.argsort(-gn_step.max(axis=-1), kind="stable")[:GATE_VOXELS].tolist()
 
 
-def timed(label: str, kernel, plain) -> dict:
-    """Kernel and plain times by ``cuda_ms``, printed with their spread."""
+def yardstick(name: str, *args) -> tuple:
+    """(call's name, fn): LIBRARY's call for kernel ``name`` on ``args``."""
+    call, fn = LIBRARY[name]
+    return call, lambda: fn(*args)
+
+
+def timed(label: str, kernel, plain, bnd, library: tuple) -> dict:
+    """Kernel and plain times by ``cuda_ms``, printed with their spread,
+    beside the card's least time ``bnd`` (tools/bounds.py) for the same
+    work and, where one PyTorch call computes the same function, that
+    call's time: ``library`` is ``yardstick(...)`` or (None, why there is
+    none)."""
     from llckbdm_tpu_torch.tools.timing import cuda_ms
 
     t_k, t_p = cuda_ms(kernel), cuda_ms(plain)
-    print(f"{label}: kernel {t_k}; plain {t_p}", flush=True)
-    return dict(ms=t_k.ms, plain_ms=t_p.ms, ms_range=[t_k.lo, t_k.hi],
-                plain_ms_range=[t_p.lo, t_p.hi])
+    out = dict(ms=t_k.ms, plain_ms=t_p.ms, ms_range=[t_k.lo, t_k.hi],
+               plain_ms_range=[t_p.lo, t_p.hi], bound_ms=bnd.ms,
+               bound_by=bnd.by, flops=bnd.flops, bytes=bnd.bytes)
+    call, fn = library
+    if call is None:
+        out.update(library_call=None, library_ms=None, library_null_reason=fn)
+        lib = f"no library call ({fn})"
+    else:
+        t_l = cuda_ms(fn)
+        out.update(library_call=call, library_ms=t_l.ms,
+                   library_ms_range=[t_l.lo, t_l.hi])
+        lib = f"{call} {t_l}"
+    print(f"{label}: kernel {t_k}; plain {t_p}; bound {bnd.ms:.4f} ms "
+          f"({bnd.by}: {bnd.flops:.4g} flop, {bnd.bytes:.4g} B); library "
+          f"{lib}", flush=True)
+    return out
 
 
 def matched_eig_err(mu_a: torch.Tensor, mu_b: torch.Tensor) -> torch.Tensor:
@@ -196,8 +238,9 @@ def crandn(gen: torch.Generator, *shape) -> torch.Tensor:
 
 
 def gram(gen: torch.Generator, b: int, k: int) -> torch.Tensor:
-    """Well-conditioned Hermitian PD Gram matrices y^H y, y (b, 64, k)."""
-    y = crandn(gen, b, 64, k)
+    """Well-conditioned Hermitian PD Gram matrices y^H y, y (b, rows, k)
+    with rows = max(64, 2k) (a square y would make G ill-conditioned)."""
+    y = crandn(gen, b, max(64, 2 * k), k)
     return y.conj().transpose(-1, -2) @ y
 
 
@@ -208,6 +251,7 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     """Each kernel against its plain version on the same CUDA inputs."""
     from llckbdm_tpu_torch.ops import cuda_jacobi, cuda_linalg
+    from llckbdm_tpu_torch.tools import bounds
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     out = {}
@@ -239,12 +283,15 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
         check(rel.max().item() < 3e-3, f"eig_cs n={n} disagrees: "
               f"{rel.max().item():.3e}")
         worst = max(worst, err.max().item())
+    n = ut.shape[-1]
     out["eig_cs"] = dict(
         max_abs_err=worst, tol="matched |dmu| <= 3e-3 |A|_F",
-        shape=list(ut.shape),
+        shape=list(ut.shape), sweeps=sweeps,
         **timed(f"eig_cs {tuple(ut.shape)}",
                 lambda: cuda_jacobi.eig_cs_resid(ut, sweeps),
-                lambda: cuda_jacobi.eig_cs_resid_plain(ut, sweeps)))
+                lambda: cuda_jacobi.eig_cs_resid_plain(ut, sweeps),
+                bounds.eig_cs(ut.numel() // (n * n), n, sweeps),
+                yardstick("eig_cs", ut)))
 
     # gram_svd: singular values to f32 rounding; V is unique only up to a
     # phase per column (the w phase of a converged pair is rounding noise),
@@ -252,7 +299,7 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     batch = ut.shape[0] * ut.shape[1]
     k, es = cfg.p + cfg.oversample, cfg.eigh_sweeps
     worst = 0.0
-    for kk, b in ((k, batch), (k - 1, 4096)):
+    for kk, b in ((k, batch), (k - 1, 4096), (cuda_linalg.MAX_K, 4096)):
         m = crandn(gen, b, kk, kk)
         s_k, v_k = cuda_linalg.gram_svd(m, es)
         s_p, v_p = cuda_linalg.gram_svd_plain(m, es)
@@ -267,10 +314,11 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     m = crandn(gen, batch, k, k)
     out["gram_svd"] = dict(
         max_abs_err=worst, tol="|ds| <= 1e-5 s_max; reconstruction <= 1e-4",
-        shape=[batch, k, k],
+        shape=[batch, k, k], sweeps=es,
         **timed(f"gram_svd ({batch}, {k}, {k})",
                 lambda: cuda_linalg.gram_svd(m, es),
-                lambda: cuda_linalg.gram_svd_plain(m, es)))
+                lambda: cuda_linalg.gram_svd_plain(m, es),
+                bounds.gram_svd(batch, k, es), yardstick("gram_svd", m)))
 
     # cholqr_rinv and chol_solve on well-conditioned Gram matrices: the same
     # f32 operations in another summation order, so 1e-5 relative
@@ -296,13 +344,18 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
         max_abs_err=worst, tol="1e-5 relative", shape=[batch, k, k],
         **timed(f"cholqr_rinv ({batch}, {k}, {k})",
                 lambda: cuda_linalg.cholqr_rinv(g, sh),
-                lambda: cuda_linalg.cholqr_rinv_plain(g, sh)))
+                lambda: cuda_linalg.cholqr_rinv_plain(g, sh),
+                bounds.cholqr_rinv(batch, k),
+                (None, "no single call gives R^-1 of the shifted Cholesky "
+                       "factor: cholesky and then a triangular inverse are "
+                       "two")))
 
     worst = 0.0
     timing = {}
     p, v = cfg.p, ut.shape[0]
-    for kk, b in ((p, batch), (2 * REFINE_CLUSTERS, v), (p - 1, 4096),
-                  (2 * REFINE_CLUSTERS - 1, 4096)):
+    gn, wide = 2 * REFINE_CLUSTERS, cuda_linalg.MAX_K_SOLVE
+    for kk, b in ((p, batch), (gn, v), (wide, v), (p - 1, 4096),
+                  (gn - 1, 4096), (wide - 1, 4096)):
         g = gram(gen, b, kk)
         rhs = crandn(gen, b, kk)
         sh = 1e-7 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
@@ -318,15 +371,23 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
               f"residual {res.item():.3e}")
         check(e < 1e-5 and res.item() < 1e-4, f"chol_solve k={kk} disagrees")
         worst = max(worst, (x_k - x_p).abs().max().item())
-        if kk in (p, 2 * REFINE_CLUSTERS):
-            timing[kk] = timed(f"chol_solve ({b}, {kk}, {kk})",
-                               lambda: cuda_linalg.chol_solve(g, rhs, sh),
-                               lambda: cuda_linalg.chol_solve_plain(g, rhs, sh))
-    gn = 2 * REFINE_CLUSTERS
+        if kk in (p, gn, wide):
+            g_shifted = g + sh[:, None, None] * torch.eye(
+                kk, dtype=g.dtype, device=DEVICE)
+            timing[kk] = timed(
+                f"chol_solve ({b}, {kk}, {kk})",
+                lambda: cuda_linalg.chol_solve(g, rhs, sh),
+                lambda: cuda_linalg.chol_solve_plain(g, rhs, sh),
+                bounds.chol_solve(b, kk),
+                yardstick("chol_solve", g_shifted, rhs))
+    # amplitudes; the main path's GN (16 clusters); the configuration's own
+    # GN (max_clusters=32: fit_and_refine_grid in the two-rank phase)
     out["chol_solve"] = dict(
         max_abs_err=worst, tol="1e-5 relative", shape=[batch, p, p],
         **timing[p], shape_gn=[v, gn, gn],
-        **{f"{key}_gn": val for key, val in timing[gn].items()})
+        **{f"{key}_gn": val for key, val in timing[gn].items()},
+        shape_gn64=[v, wide, wide],
+        **{f"{key}_gn64": val for key, val in timing[wide].items()})
     return out
 
 
@@ -350,7 +411,7 @@ def probe_checks() -> dict:
     plain version on the same CUDA inputs."""
     from llckbdm_tpu_torch.ops import cuda_probes
     from llckbdm_tpu_torch.tools import bench_eigh_variants as bev
-    from llckbdm_tpu_torch.tools import kernel_smoke
+    from llckbdm_tpu_torch.tools import bounds, kernel_smoke
     from llckbdm_tpu_torch.tools.timing import cuda_ms
 
     out = {}
@@ -375,7 +436,10 @@ def probe_checks() -> dict:
         shape=[b, n, n], steps=steps,
         **timed(f"row_probe ({b}, {n}, {n}) steps={steps}",
                 lambda: cuda_probes.row_probe(sched, a),
-                lambda: cuda_probes.row_probe_plain(sched, a)))
+                lambda: cuda_probes.row_probe_plain(sched, a),
+                bounds.row_probe(b, n, steps),
+                (None, "a probe of dynamic row access: no library call "
+                       "computes its schedule of row steps")))
 
     # eigh_probe: the tool's six runs check the invariants and finite w at
     # its size and time each; the variant they leave out (rows + V) here
@@ -407,15 +471,21 @@ def probe_checks() -> dict:
           f"plain eigh_probe invariants {errs}")
     t_p = cuda_ms(lambda: cuda_probes.eigh_probe_plain(big, bev.SWEEPS))
     t_k = runs["full"]
+    bnd = bounds.eigh_probe(big.shape[0], big.shape[-1], bev.SWEEPS)
     print(f"eigh_probe {tuple(big.shape)} sweeps={bev.SWEEPS} full: kernel "
-          f"{t_k}; plain {t_p}", flush=True)
+          f"{t_k}; plain {t_p}; bound {bnd.ms:.4f} ms ({bnd.by})", flush=True)
     out["eigh_probe"] = dict(
         launches=launches, max_abs_err=worst,
         tol="w: 1e-4 max|A| at n=8, one sweep; at (4480, 24, 24), 8 sweeps: "
             "|V|_F, |S|_F (no column writes) = |A|_F to 1e-5",
         shape=list(big.shape), sweeps=bev.SWEEPS, ms=t_k.ms, plain_ms=t_p.ms,
         ms_range=[t_k.lo, t_k.hi], plain_ms_range=[t_p.lo, t_p.hi],
-        variant_ms={name: t.ms for name, t in runs.items()})
+        variant_ms={name: t.ms for name, t in runs.items()},
+        bound_ms=bnd.ms, bound_by=bnd.by, flops=bnd.flops, bytes=bnd.bytes,
+        library_call=None, library_ms=None,
+        library_null_reason="a cost probe, not an eigensolver: its w is not "
+                            "the spectrum of A, so no library call computes "
+                            "it")
     return out
 
 
@@ -511,6 +581,7 @@ def two_rank_child(rank: int, rdv: str, out_dir: str, sigs: np.ndarray,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from llckbdm_tpu_torch import LineList
+    from llckbdm_tpu_torch.ops import _build
     from llckbdm_tpu_torch.parallel import (distributed_init,
                                             fit_and_refine_grid,
                                             fit_grid_sharded, make_mesh,
@@ -532,16 +603,18 @@ def two_rank_child(rank: int, rdv: str, out_dir: str, sigs: np.ndarray,
             ms.append((time.perf_counter() - t0) * 1e3)
         out = {"ts_z": refined.z.cpu().numpy(), "ts_d": refined.d.cpu().numpy(),
                "ts_ms": np.array(ms[1:])}
-        # fit_and_refine_grid refines every consolidated slot, and the GN
-        # solve kernel takes 2C <= 32: so C = REFINE_CLUSTERS, whose slots
-        # are the first REFINE_CLUSTERS of cfg's (clusters are count-sorted)
-        (chain, counts), _ = fit_and_refine_grid(
-            sigs, DWELL, dataclasses.replace(cfg, max_clusters=REFINE_CLUSTERS),
-            mesh, rcfg)
+        # every consolidated slot of cfg (2C x 2C GN solves), with this
+        # rank's launch counts set to 0 just before and read just after
+        _build.reset_counts()
+        (chain, counts), _ = fit_and_refine_grid(sigs, DWELL, cfg, mesh, rcfg)
+        torch.cuda.synchronize()
         out.update(chain_z=chain.z.cpu().numpy(), chain_d=chain.d.cpu().numpy(),
                    chain_mask=chain.mask.cpu().numpy(),
                    chain_gn_step=chain.gn_step.cpu().numpy(),
-                   chain_counts=counts.cpu().numpy())
+                   chain_counts=counts.cpu().numpy(),
+                   chain_launches=np.array([_build.LAUNCHES[name]
+                                            for name in MAIN_KERNELS]),
+                   chain_plain=np.array(sum(_build.PLAIN_ON_CUDA.values())))
         del refined, chain
         mesh = make_mesh({"data": 2, "time": 1}, "cuda")
         (cons, _, counts, _), rows = fit_grid_sharded(sigs, DWELL, cfg, mesh)
@@ -568,11 +641,14 @@ def spawn_and_wait(fn, nprocs: int, args: tuple, timeout: float) -> None:
                                f"{timeout} s")
 
 
-def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single, cfg,
-                   rcfg) -> dict:
+def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single,
+                   single_all, cfg, rcfg) -> dict:
     """Two ranks on the one card over gloo, held against the single-process
-    results of the main path (`cons`, `counts`, and `single`: refine_grid of
-    `lines`)."""
+    results of the main path (`cons`, `counts`; `single`: refine_grid of
+    `lines`, the top REFINE_CLUSTERS slots; `single_all`: refine_grid of
+    all of `cons`'s slots)."""
+    from llckbdm_tpu_torch import LineList, line_list_to_np
+
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -583,9 +659,9 @@ def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single, cfg,
         t_spawn = time.perf_counter() - t0
         outs = [dict(np.load(pathlib.Path(tmp) / f"rank{r}.npz"))
                 for r in range(2)]
-    z1, d1 = single.z.cpu().numpy(), single.d.cpu().numpy()
     errs = {}
-    for prefix in ("ts", "chain"):
+    for prefix, ref in (("ts", single), ("chain", single_all)):
+        z1, d1 = ref.z.cpu().numpy(), ref.d.cpu().numpy()
         check(np.array_equal(outs[0][f"{prefix}_z"], outs[1][f"{prefix}_z"])
               and np.array_equal(outs[0][f"{prefix}_d"],
                                  outs[1][f"{prefix}_d"]),
@@ -595,13 +671,27 @@ def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single, cfg,
         check(errs[prefix][0] <= 5e-9 and errs[prefix][1] <= 5e-8,
               f"{prefix}: time-sharded vs single-process refine |dz|, |dd| "
               f"{errs[prefix]} (bounds 5e-9, 5e-8)")
+    # fit_and_refine_grid: rank 0 fits (every kernel), both ranks take the
+    # GN_ITERS 64 x 64 solves, and no plain version ran on a CUDA tensor
+    chain_launches = [dict(zip(MAIN_KERNELS, o["chain_launches"].tolist()))
+                      for o in outs]
+    for r, o in enumerate(outs):
+        check(int(o["chain_plain"]) == 0,
+              f"rank {r}: a plain version ran on CUDA in fit_and_refine_grid")
+        check(chain_launches[r]["chol_solve"] >= GN_ITERS,
+              f"rank {r}: fit_and_refine_grid launched chol_solve "
+              f"{chain_launches[r]['chol_solve']} times")
+    check(all(chain_launches[0][name] > 0 for name in MAIN_KERNELS),
+          f"rank 0's fit_and_refine_grid launches {chain_launches[0]}")
     chain = outs[0]
-    check(np.array_equal(chain["chain_counts"],
-                         counts[:, :REFINE_CLUSTERS].cpu().numpy()),
+    check(np.array_equal(chain["chain_counts"], counts.cpu().numpy()),
           "fit_and_refine_grid's cluster counts differ from the main path's")
+    check(chain["chain_z"].shape == (VOXELS, cfg.max_clusters),
+          f"fit_and_refine_grid refined {chain['chain_z'].shape} slots")
     voxels = largest_step_voxels(chain["chain_gn_step"])
     gate = max(gate_errors(
-        oracle, voxels, sigs, truths, lambda i: truths[i],
+        oracle, voxels, sigs, truths,
+        lambda i: line_list_to_np(LineList(*(x[i] for x in cons))),
         lambda i: rows_of(chain["chain_z"][i], chain["chain_d"][i],
                           chain["chain_mask"][i])))
     check(gate < 1e-8, f"fit_and_refine_grid missed the 1e-8 gate: {gate:.3e}")
@@ -625,19 +715,107 @@ def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single, cfg,
     ts_ms = float(np.median(outs[0]["ts_ms"]))
     print(f"two ranks on one card (gloo): time-sharded refine {ts_ms:.1f} ms "
           f"(runs {outs[0]['ts_ms'].round(1).tolist()}); |dz|, |dd| vs single "
-          f"{errs['ts']}; fit_and_refine_grid |dz|, |dd| {errs['chain']}, "
+          f"{errs['ts']}; fit_and_refine_grid (C={cfg.max_clusters}) |dz|, "
+          f"|dd| {errs['chain']}, launches per rank {chain_launches}, "
           f"oracle gate {gate:.3e} on voxels {voxels}; fit_grid_sharded "
           f"counts and masks exact, lines within {fit_err:.3e} of the bound "
           f"1e-4 + 1e-4 |b|; children "
           f"{t_spawn:.1f} s", flush=True)
     return {"ts_refine_ms": ts_ms, "ts_err": errs["ts"],
             "chain_err": errs["chain"], "chain_gate": gate,
+            "chain_launches": chain_launches,
             "sharded_fit_err": fit_err, "children_s": t_spawn}
+
+
+def profile_main_path(main_path, wall_ms: float) -> dict:
+    """One more run of the main path under torch.profiler (CUDA activity
+    only): the device's busy time (the self time of every kernel, copy and
+    fill), the idle share of ``wall_ms`` (the unprofiled run's fit + refine
+    wall time), the busy time by kind, and the 12 largest consumers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        main_path()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:      # counted by its kernels
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:                            # older torch
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(key=lambda r: -r[0])
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "torch.profiler recorded no device time")
+
+    def kind(key: str) -> str:
+        low = key.lower()
+        if any(f"{name}_kernel" in key for name in MAIN_KERNELS):
+            return "hand-written kernels"
+        if "gemm" in low:
+            return "gemm"
+        if "copy" in low or "memcpy" in low:
+            return "copies"
+        return "other"
+
+    kinds: dict = {}
+    for ms, _, key in rows:
+        kinds[kind(key)] = kinds.get(kind(key), 0.0) + ms
+    top = [{"name": key[:120], "ms": ms, "calls": n, "share": ms / busy}
+           for ms, n, key in rows[:12]]
+    idle = 1.0 - busy / wall_ms
+    print(f"profile of one fit + refine: device busy {busy:.3f} ms; "
+          f"unprofiled wall {wall_ms:.3f} ms (idle share {idle:.4f}); "
+          f"profiled window {window_ms:.3f} ms; by kind "
+          + ", ".join(f"{k} {v:.3f} ms ({v / busy:.3f})"
+                      for k, v in sorted(kinds.items(), key=lambda x: -x[1])),
+          flush=True)
+    for t in top:
+        print(f"  {t['ms']:9.3f} ms {t['share']:.4f} x{t['calls']:<5} "
+              f"{t['name']}")
+    return {"busy_ms": busy, "wall_ms": wall_ms, "idle_share": idle,
+            "profiled_window_ms": window_ms, "by_kind_ms": kinds, "top": top}
+
+
+def rank_kernels(results: dict) -> None:
+    """Print the main-path kernels in the order a redesign should take them:
+    first those slower than their library call, the largest factor first;
+    then the rest by launches x (ms - bound_ms) per main-path run.
+    chol_solve runs once at the amplitude shape and GN_ITERS times at the
+    Gauss-Newton shape."""
+    slower, rest = [], []
+    for name in MAIN_KERNELS:
+        r = results[name]
+        loss = r["launches"] * (r["ms"] - r["bound_ms"])
+        if name == "chol_solve":
+            check(r["launches"] == 1 + GN_ITERS,
+                  f"chol_solve launched {r['launches']} times")
+            loss = (r["ms"] - r["bound_ms"]) + GN_ITERS * (r["ms_gn"]
+                                                            - r["bound_ms_gn"])
+        lib = r["library_ms"]
+        factor = r["ms"] / lib if lib else None
+        row = (name, factor, loss)
+        (slower if factor and factor > 1.0 else rest).append(row)
+    order = (sorted(slower, key=lambda x: -x[1])
+             + sorted(rest, key=lambda x: -x[2]))
+    print("redesign order: " + "; ".join(
+        f"{name} (kernel/library {'n/a' if f is None else f'{f:.3g}'}, "
+        f"launches x (ms - bound) {loss:.4f} ms)" for name, f, loss in order),
+        flush=True)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    if not (ROOT / "llckbdm_tpu_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: no llckbdm_tpu_torch package beside {__file__}; "
+              f"run it from the root of a checkout", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -651,7 +829,8 @@ def main() -> int:
 
     from llckbdm_tpu_torch import (KbdmConfig, LineList, LlcKbdmConfig,
                                    RefineConfig, kbdm_sweep, line_list_to_np,
-                                   llc_kbdm_fit, refine_lines, refined_to_np)
+                                   llc_kbdm_fit, oracle, refine_lines,
+                                   refined_to_np)
     from llckbdm_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -659,7 +838,6 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    oracle = load_oracle()
     sigs, truths = make_signals(oracle, VOXELS)
     c64 = torch.as_tensor(sigs, device=DEVICE)
     c32 = c64.to(torch.complex64)
@@ -705,6 +883,7 @@ def main() -> int:
         check(launches.get(name, 0) > 0, f"{name} was not launched by the "
               f"main path")
     check(not any(plain.values()), f"a plain version ran on CUDA: {plain}")
+    rank_kernels(results)
     check(cons.amplitude.shape == (VOXELS, cfg.max_clusters),
           f"consolidated shape {tuple(cons.amplitude.shape)}")
     check(refined.z.shape == (VOXELS, REFINE_CLUSTERS)
@@ -740,12 +919,16 @@ def main() -> int:
           f"{gate:.3e} (< 1e-8); per voxel {errs}")
     check(gate < 1e-8, f"refined lines missed the 1e-8 oracle gate: {gate:.3e}")
 
+    # --- where the main path's device time goes ---------------------------
+    prof = profile_main_path(main_path, (t_fit + t_refine) * 1e3)
+
     # --- the tool kernels -------------------------------------------------
     results.update(probe_checks())
 
     # --- the grid layer ---------------------------------------------------
     grid = grid_phase(oracle, cfg, rcfg)
     from llckbdm_tpu_torch.parallel import refine_grid
+    single_all = refine_grid(c64, cons, DWELL, rcfg)
     single_ms = []
     for _ in range(4):                            # the first is a warm-up
         torch.cuda.synchronize()
@@ -754,12 +937,15 @@ def main() -> int:
         torch.cuda.synchronize()
         single_ms.append((time.perf_counter() - t0) * 1e3)
     two = two_rank_phase(oracle, sigs, truths, cons, counts, top(cons),
-                         single, cfg, rcfg)
+                         single, single_all, cfg, rcfg)
     two["single_refine_ms"] = float(np.median(single_ms[1:]))
     print(f"single-process refine_grid of the same lines: "
           f"{two['single_refine_ms']:.1f} ms (runs "
           f"{np.round(single_ms[1:], 1).tolist()}); time-sharded over two "
           f"ranks: {two['ts_refine_ms']:.1f} ms", flush=True)
+    # rank 1 fits nothing: its launches are the 64 x 64 GN solves alone
+    results["chol_solve"]["launches_gn64"] = two["chain_launches"][1][
+        "chol_solve"]
 
     sources = {
         "eig_cs": ("llckbdm_tpu_torch/csrc/eig_cs.cu",
@@ -782,7 +968,7 @@ def main() -> int:
     print(json.dumps({"voxels": VOXELS, "fit_ms": t_fit * 1e3,
                       "refine_ms": t_refine * 1e3, "peak_gib": peak_gb,
                       "jacobi_offdiag_rel": offdiag, "gate_max_err": gate,
-                      "grid": grid, "two_ranks": two}))
+                      "profile": prof, "grid": grid, "two_ranks": two}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

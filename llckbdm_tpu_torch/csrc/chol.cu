@@ -1,7 +1,8 @@
 // Batched shifted Cholesky G + shift I = R^H R (R upper) of small complex
 // Hermitian matrices, and the two things built on it:
-//   * cholqr_rinv: the upper-triangular R^{-1} (the CholeskyQR step);
-//   * chol_solve:  (G + shift I) x = b by forward and back substitution.
+//   * cholqr_rinv: the upper-triangular R^{-1} (the CholeskyQR step), k <= 32;
+//   * chol_solve:  (G + shift I) x = b by forward and back substitution,
+//                  k <= 64.
 //
 // Replaces llckbdm_tpu/ops/pallas_linalg.py::_cholqr_kernel and
 // ::_chol_solve_kernel, which share ::_chol_inplace; here they share
@@ -11,11 +12,13 @@
 // garbage, as in the TPU kernel, and never read.  The plain PyTorch mirrors
 // are ops/cuda_linalg.py::cholqr_rinv_plain and ::chol_solve_plain.
 //
-// Design: one warp per matrix, lane t owns column t; the matrix lives in
-// shared memory with a padded row stride.  The factorization is k rank-1
-// row updates; R^{-1} is computed column by column, each lane reading only
-// its own column of X, so no synchronisation is needed there; each step of a
-// substitution is one warp shuffle reduction.
+// Design: one warp per matrix; lane t owns column t, and for k > 32 also
+// column t + 32 (the Gauss-Newton normal equations of 32 clusters are
+// 64 x 64); the matrix lives in shared memory with a padded row stride.  The
+// factorization is k rank-1 row updates; R^{-1} is computed column by
+// column, each lane reading only its own column of X, so no synchronisation
+// is needed there; each step of a substitution is one warp shuffle
+// reduction.
 //
 // Bound: the k sequential pivots (latency), with O(k^2) work per pivot
 // spread over the lanes.  Device memory sees one read of G (and b) and one
@@ -24,7 +27,7 @@
 
 namespace {
 
-constexpr int kWarps = 2;  // matrices per block
+constexpr int kWarps = 2;  // matrices per block at k <= 32 (one at k > 32)
 
 __device__ __forceinline__ float2 warp_sum2(float2 v) {
   for (int o = 16; o > 0; o >>= 1) {
@@ -34,26 +37,37 @@ __device__ __forceinline__ float2 warp_sum2(float2 v) {
   return v;
 }
 
-// In-place upper Cholesky of s + shift I (k x k, row stride ld) by one warp.
+// In-place upper Cholesky of s + shift I (k x k, row stride ld) by one warp;
+// lane t owns columns t + 32 q, q < Cols.
+template <int Cols>
 __device__ void chol_inplace(float2* s, int ld, int k, float shift, int lane) {
-  if (lane < k) s[lane * ld + lane].x += shift;
+  for (int q = 0; q < Cols; ++q) {
+    const int c = lane + 32 * q;
+    if (c < k) s[c * ld + c].x += shift;
+  }
   __syncwarp();
   for (int i = 0; i < k; ++i) {
     const float dinv = rsqrtf(fmaxf(s[i * ld + i].x, 1e-30f));
     __syncwarp();  // every lane has read the pivot before it is scaled
-    if (lane < k) {
-      s[i * ld + lane].x *= dinv;
-      s[i * ld + lane].y *= dinv;
+    for (int q = 0; q < Cols; ++q) {
+      const int c = lane + 32 * q;
+      if (c < k) {
+        s[i * ld + c].x *= dinv;
+        s[i * ld + c].y *= dinv;
+      }
     }
     __syncwarp();
     // rows r > i:  row_r -= conj(R[i, r]) * R[i, :]
-    if (lane < k) {
-      const float2 rit = s[i * ld + lane];
-      for (int r = i + 1; r < k; ++r) {
-        const float2 cr = s[i * ld + r];
-        float2& e = s[r * ld + lane];
-        e.x -= cr.x * rit.x + cr.y * rit.y;
-        e.y -= cr.x * rit.y - cr.y * rit.x;
+    for (int q = 0; q < Cols; ++q) {
+      const int c = lane + 32 * q;
+      if (c < k) {
+        const float2 rit = s[i * ld + c];
+        for (int r = i + 1; r < k; ++r) {
+          const float2 cr = s[i * ld + r];
+          float2& e = s[r * ld + c];
+          e.x -= cr.x * rit.x + cr.y * rit.y;
+          e.y -= cr.x * rit.y - cr.y * rit.x;
+        }
       }
     }
     __syncwarp();
@@ -79,7 +93,7 @@ __global__ void cholqr_rinv_kernel(const float2* __restrict__ g,
   float2* x = s + k * ld;  // X = R^{-1}, row stride ld
   const size_t base = static_cast<size_t>(b) * k * k;
   load_matrix(g + base, s, ld, k, lane);
-  chol_inplace(s, ld, k, shift[b], lane);
+  chol_inplace<1>(s, ld, k, shift[b], lane);
 
   // X[i, :] = (e_i - sum_{p>i} R[i, p] X[p, :]) / R[i, i], bottom row first
   if (lane < k) {
@@ -99,6 +113,7 @@ __global__ void cholqr_rinv_kernel(const float2* __restrict__ g,
   for (int e = lane; e < k * k; e += 32) x_out[base + e] = x[(e / k) * ld + e % k];
 }
 
+template <int Cols>
 __global__ void chol_solve_kernel(const float2* __restrict__ g,
                                   const float2* __restrict__ rhs,
                                   const float* __restrict__ shift,
@@ -106,41 +121,58 @@ __global__ void chol_solve_kernel(const float2* __restrict__ g,
                                   int k) {
   extern __shared__ float2 smem[];
   const int lane = threadIdx.x;
-  const int b = blockIdx.x * kWarps + threadIdx.y;
+  const int b = blockIdx.x * blockDim.y + threadIdx.y;
   if (b >= batch) return;  // the whole warp leaves together
   const int ld = k + 1;
   float2* s = smem + threadIdx.y * k * ld;
   load_matrix(g + static_cast<size_t>(b) * k * k, s, ld, k, lane);
-  chol_inplace(s, ld, k, shift[b], lane);
+  chol_inplace<Cols>(s, ld, k, shift[b], lane);
 
-  // lane p holds y[p] and then x[p]
-  const float2 bl = lane < k ? rhs[static_cast<size_t>(b) * k + lane]
-                             : make_float2(0.0f, 0.0f);
+  // lane t holds y[p] and then x[p] for p = t + 32 q
+  float2 bl[Cols], y[Cols], x[Cols];
+  for (int q = 0; q < Cols; ++q) {
+    const int p = lane + 32 * q;
+    bl[q] = p < k ? rhs[static_cast<size_t>(b) * k + p] : make_float2(0.0f, 0.0f);
+    y[q] = x[q] = make_float2(0.0f, 0.0f);
+  }
   // forward: R^H y = b:  y[i] = (b[i] - sum_{p<i} conj(R[p, i]) y[p]) / R[i, i]
-  float2 y = make_float2(0.0f, 0.0f);
   for (int i = 0; i < k; ++i) {
     float2 term = make_float2(0.0f, 0.0f);
-    if (lane < i) {
-      const float2 rp = s[lane * ld + i];
-      term = make_float2(rp.x * y.x + rp.y * y.y, rp.x * y.y - rp.y * y.x);
+    for (int q = 0; q < Cols; ++q) {
+      const int p = lane + 32 * q;
+      if (p < i) {
+        const float2 rp = s[p * ld + i];
+        term.x += rp.x * y[q].x + rp.y * y[q].y;
+        term.y += rp.x * y[q].y - rp.y * y[q].x;
+      }
     }
     const float2 sum = warp_sum2(term);
     const float dinv = 1.0f / fmaxf(s[i * ld + i].x, 1e-30f);
-    if (lane == i) y = make_float2((bl.x - sum.x) * dinv, (bl.y - sum.y) * dinv);
+    for (int q = 0; q < Cols; ++q)
+      if (lane + 32 * q == i)
+        y[q] = make_float2((bl[q].x - sum.x) * dinv, (bl[q].y - sum.y) * dinv);
   }
   // backward: R x = y:  x[i] = (y[i] - sum_{p>i} R[i, p] x[p]) / R[i, i]
-  float2 x = make_float2(0.0f, 0.0f);
   for (int i = k - 1; i >= 0; --i) {
     float2 term = make_float2(0.0f, 0.0f);
-    if (lane > i && lane < k) {
-      const float2 rp = s[i * ld + lane];
-      term = make_float2(rp.x * x.x - rp.y * x.y, rp.x * x.y + rp.y * x.x);
+    for (int q = 0; q < Cols; ++q) {
+      const int p = lane + 32 * q;
+      if (p > i && p < k) {
+        const float2 rp = s[i * ld + p];
+        term.x += rp.x * x[q].x - rp.y * x[q].y;
+        term.y += rp.x * x[q].y + rp.y * x[q].x;
+      }
     }
     const float2 sum = warp_sum2(term);
     const float dinv = 1.0f / fmaxf(s[i * ld + i].x, 1e-30f);
-    if (lane == i) x = make_float2((y.x - sum.x) * dinv, (y.y - sum.y) * dinv);
+    for (int q = 0; q < Cols; ++q)
+      if (lane + 32 * q == i)
+        x[q] = make_float2((y[q].x - sum.x) * dinv, (y[q].y - sum.y) * dinv);
   }
-  if (lane < k) x_out[static_cast<size_t>(b) * k + lane] = x;
+  for (int q = 0; q < Cols; ++q) {
+    const int p = lane + 32 * q;
+    if (p < k) x_out[static_cast<size_t>(b) * k + p] = x[q];
+  }
 }
 
 }  // namespace
@@ -159,17 +191,24 @@ extern "C" int llck_cholqr_rinv(const void* g, const void* shift, void* rinv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// g: (batch, k, k) complex64, 1 <= k <= 32; b: (batch, k) complex64;
+// g: (batch, k, k) complex64, 1 <= k <= 64; b: (batch, k) complex64;
 // shift: (batch,) float32.  x: (batch, k) complex64.  Returns
 // cudaGetLastError().
 extern "C" int llck_chol_solve(const void* g, const void* b, const void* shift,
                                void* x, int batch, int k, void* stream) {
   if (batch <= 0) return 0;
-  const dim3 block(32, kWarps);
-  const dim3 grid((batch + kWarps - 1) / kWarps);
-  const size_t smem = static_cast<size_t>(kWarps) * k * (k + 1) * sizeof(float2);
-  chol_solve_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(g), static_cast<const float2*>(b),
-      static_cast<const float*>(shift), static_cast<float2*>(x), batch, k);
+  const int warps = k > 32 ? 1 : kWarps;  // k = 64: 33 KB of shared memory
+  const dim3 block(32, warps);
+  const dim3 grid((batch + warps - 1) / warps);
+  const size_t smem = static_cast<size_t>(warps) * k * (k + 1) * sizeof(float2);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* gp = static_cast<const float2*>(g);
+  const auto* bp = static_cast<const float2*>(b);
+  const auto* sp = static_cast<const float*>(shift);
+  auto* xp = static_cast<float2*>(x);
+  if (k > 32)
+    chol_solve_kernel<2><<<grid, block, smem, st>>>(gp, bp, sp, xp, batch, k);
+  else
+    chol_solve_kernel<1><<<grid, block, smem, st>>>(gp, bp, sp, xp, batch, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,24 +8,34 @@
 // cdiv, rows written first and then the columns as the transposed rows.
 // The plain PyTorch mirror is ops/cuda_jacobi.py::eig_cs_resid_plain.
 //
-// Design: one warp per matrix, lane t owns column t of the two rows a
-// rotation touches.  The n/2 pairs of a round are applied ONE AFTER ANOTHER
-// (applying them at once diverges: llckbdm_tpu/ops/jacobi.py:232-237), with
-// a __syncwarp between the reads and the writes of each pair.  The matrix
-// lives in shared memory with a padded row stride so column accesses do not
-// all land on one bank.
+// What bounds it: the sequential rotation chain, sweeps * (n-1) * n/2
+// dependent pair updates per matrix, each a shared-memory round trip and a
+// __syncwarp.  The work is issue-bound, not memory-bound: device memory
+// sees one read of A and one write of the diagonal, ~1% of the time.  The
+// rotation parameters (two cdiv, two csqrt, four cabs in IEEE float32) are
+// most of the instructions if every pair computes them on the chain.
 //
-// Bound: latency of the sequential rotation chain (sweeps * (n-1) * n/2
-// dependent steps per matrix); the matrix never leaves shared memory and
-// device memory sees one read of A and one write of the diagonal.  The
-// batch (voxels x m-sweep, 71 680 at the bench shape) supplies the
-// parallelism.  At n = 16 half of each warp idles: packing two matrices per
-// warp is left to a later change.
+// What the design does about it:
+//  * A round's n/2 rotation parameters are computed at once, one pair per
+//    lane, at the start of the round.  This is exact: pair k reads only
+//    a[i,i], a[j,j] and a[i,j], and the other pairs of the round rotate rows
+//    and columns disjoint from {i, j}, so none of them changes those three
+//    entries; (c, s) and the 2x2 entry fix (nii, nij, njj) are the same
+//    numbers whether computed now or just before the pair is applied.
+//  * The n/2 row and column updates are then applied one after another, in
+//    the round's order (applying them at once diverges:
+//    llckbdm_tpu/ops/jacobi.py:232-237): each is only the 28n-flop row
+//    update, lane t owning column t, reading its (c, s) from shared memory.
+//  * At n <= 16 a warp holds two matrices (lanes 0-15 and 16-31), so no
+//    lane idles; up to n = 32 one matrix per warp.
+//  * The pair table (i, j) of the n - 1 rounds is built once per block.
+// The matrix lives in shared memory with a padded row stride so column
+// accesses do not land on one bank.  Odd n is zero-padded by the wrapper.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 4;  // matrices per block
+constexpr int kWarps = 4;  // warps per block
 
 __device__ __forceinline__ float2 cadd(float2 x, float2 y) {
   return make_float2(x.x + y.x, x.y + y.y);
@@ -50,86 +60,114 @@ __device__ __forceinline__ float cabs_(float2 x) {
   return sqrtf(x.x * x.x + x.y * x.y);
 }
 
+// One pair's rotation: (c, s) and the rotated 2x2 block's entries.
+struct Rot {
+  float2 c, s, nii, nij, njj;
+};
+
+__device__ Rot rotation(float2 av, float2 dv, float2 bv) {
+  const float2 one = make_float2(1.0f, 0.0f);
+  const float babs = cabs_(bv);
+  const float dscale =
+      sqrtf(av.x * av.x + av.y * av.y + dv.x * dv.x + dv.y * dv.y) + 1e-30f;
+  bool skip = babs <= 1e-7f * dscale;
+
+  // tau = (d - a) / (2 b);  root = sqrt(tau^2 + 1)
+  const float2 tau = cdiv(csub(dv, av), make_float2(2.0f * bv.x, 2.0f * bv.y));
+  const float2 root = csqrt_(make_float2(tau.x * tau.x - tau.y * tau.y + 1.0f,
+                                         2.0f * tau.x * tau.y));
+  const float2 p1 = cadd(tau, root);
+  const float2 p2 = csub(tau, root);
+  const float2 t = cdiv(one, cabs_(p1) >= cabs_(p2) ? p1 : p2);
+  // c = 1/sqrt(1 + t^2), s = c t;  guard near-defective pairs
+  const float2 ct2 = make_float2(t.x * t.x - t.y * t.y + 1.0f, 2.0f * t.x * t.y);
+  skip = skip || (cabs_(ct2) < 1e-12f);
+  Rot q;
+  q.c = cdiv(one, csqrt_(ct2));
+  q.s = cmul(q.c, t);
+  if (skip) {
+    q.c = one;
+    q.s = make_float2(0.0f, 0.0f);
+  }
+  // 2x2 entry fix: B2 = J^T [[a, b], [b, d]];  A' entries = B2 J.
+  const float2 b00 = csub(cmul(q.c, av), cmul(q.s, bv));
+  const float2 b01 = csub(cmul(q.c, bv), cmul(q.s, dv));
+  const float2 b10 = cadd(cmul(q.s, av), cmul(q.c, bv));
+  const float2 b11 = cadd(cmul(q.s, bv), cmul(q.c, dv));
+  q.nii = csub(cmul(q.c, b00), cmul(q.s, b01));
+  q.nij = cadd(cmul(q.s, b00), cmul(q.c, b01));
+  q.njj = cadd(cmul(q.s, b10), cmul(q.c, b11));
+  return q;
+}
+
+// per_warp matrices per warp (2 at n <= 16, else 1); lane t of a matrix's
+// 32 / per_warp lanes owns column t.
 __global__ void eig_cs_kernel(const float2* __restrict__ a,
                               float2* __restrict__ mu,
                               float* __restrict__ resid,
-                              int batch, int n, int sweeps) {
+                              int batch, int n, int sweeps, int per_warp) {
   extern __shared__ float2 smem[];
-  const int lane = threadIdx.x;
-  const int b = blockIdx.x * kWarps + threadIdx.y;
-  if (b >= batch) return;  // the whole warp leaves together
-  const int ld = n + 1;
-  float2* s = smem + threadIdx.y * n * ld;
+  const int h = n / 2, m = n - 1, ld = n + 1;
+  const int per_block = kWarps * per_warp;
+  // shared memory: the (i | j << 16) pair table of the m rounds, then the
+  // matrices, then each matrix's h rotations of the current round
+  int* tab = reinterpret_cast<int*>(smem);
+  float2* mats = smem + (m * h + 1) / 2;
+  Rot* rots = reinterpret_cast<Rot*>(mats + per_block * n * ld);
+
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  for (int e = tid; e < m * h; e += 32 * kWarps) {
+    const int r = e / h, k = e % h;
+    const int i = k == 0 ? n - 1 : (r + k) % m;
+    const int j = k == 0 ? r : (r - k + m) % m;
+    tab[e] = i | (j << 16);
+  }
+  __syncthreads();
+
+  const int lanes = 32 / per_warp;
+  const int sub = threadIdx.x / lanes;
+  const int t = threadIdx.x % lanes;
+  const int slot = threadIdx.y * per_warp + sub;
+  const int first = blockIdx.x * per_block + threadIdx.y * per_warp;
+  if (first >= batch) return;  // the whole warp leaves together
+  const int b = first + sub;
+  const bool active = b < batch;  // the warp's second matrix may be past the end
+  float2* s = mats + slot * n * ld;
+  Rot* rot = rots + slot * h;
   const float2* src = a + static_cast<size_t>(b) * n * n;
-  for (int e = lane; e < n * n; e += 32) s[(e / n) * ld + e % n] = src[e];
+  for (int e = t; e < n * n; e += lanes)
+    s[(e / n) * ld + e % n] = active ? src[e] : make_float2(0.0f, 0.0f);
   __syncwarp();
 
-  const int m = n - 1;
-  const float2 one = make_float2(1.0f, 0.0f);
   for (int step = 0; step < sweeps * m; ++step) {
-    const int r = step % m;
-    for (int k = 0; k < n / 2; ++k) {
-      int i, j;
-      if (k == 0) {
-        i = n - 1;
-        j = r;
-      } else {
-        i = (r + k) % m;
-        j = (r - k + m) % m;
-      }
-      const float2 av = s[i * ld + i];
-      const float2 dv = s[j * ld + j];
-      const float2 bv = s[i * ld + j];
-      const float babs = cabs_(bv);
-      const float dscale =
-          sqrtf(av.x * av.x + av.y * av.y + dv.x * dv.x + dv.y * dv.y) + 1e-30f;
-      bool skip = babs <= 1e-7f * dscale;
-
-      // tau = (d - a) / (2 b);  root = sqrt(tau^2 + 1)
-      const float2 tau = cdiv(csub(dv, av), make_float2(2.0f * bv.x, 2.0f * bv.y));
-      const float2 root = csqrt_(make_float2(tau.x * tau.x - tau.y * tau.y + 1.0f,
-                                             2.0f * tau.x * tau.y));
-      const float2 p1 = cadd(tau, root);
-      const float2 p2 = csub(tau, root);
-      const float2 t = cdiv(one, cabs_(p1) >= cabs_(p2) ? p1 : p2);
-      // c = 1/sqrt(1 + t^2), s = c t;  guard near-defective pairs
-      const float2 ct2 = make_float2(t.x * t.x - t.y * t.y + 1.0f, 2.0f * t.x * t.y);
-      skip = skip || (cabs_(ct2) < 1e-12f);
-      float2 c = cdiv(one, csqrt_(ct2));
-      float2 sn = cmul(c, t);
-      if (skip) {
-        c = one;
-        sn = make_float2(0.0f, 0.0f);
-      }
-
-      // 2x2 entry fix: B2 = J^T [[a, b], [b, d]];  A' entries = B2 J.
-      const float2 b00 = csub(cmul(c, av), cmul(sn, bv));
-      const float2 b01 = csub(cmul(c, bv), cmul(sn, dv));
-      const float2 b10 = cadd(cmul(sn, av), cmul(c, bv));
-      const float2 b11 = cadd(cmul(sn, bv), cmul(c, dv));
-      const float2 nii = csub(cmul(c, b00), cmul(sn, b01));
-      const float2 nij = cadd(cmul(sn, b00), cmul(c, b01));
-      const float2 njj = cadd(cmul(sn, b10), cmul(c, b11));
-
-      float2 ri = make_float2(0.0f, 0.0f), rj = ri;
-      if (lane < n) {
-        ri = s[i * ld + lane];
-        rj = s[j * ld + lane];
-      }
-      __syncwarp();  // every lane has read a, b, d and its row entries
-      if (lane < n) {
-        // Row update (J^T A): row_i' = c ri - s rj;  row_j' = s ri + c rj
-        float2 ni = csub(cmul(c, ri), cmul(sn, rj));
-        float2 nj = cadd(cmul(sn, ri), cmul(c, rj));
-        if (lane == i) ni = nii;
-        else if (lane == j) ni = nij;
-        if (lane == j) nj = njj;
-        else if (lane == i) nj = nij;
-        s[i * ld + lane] = ni;
-        s[j * ld + lane] = nj;
+    const int* row = tab + (step % m) * h;
+    if (t < h) {  // the round's rotations, one pair per lane
+      const int i = row[t] & 0xffff, j = row[t] >> 16;
+      rot[t] = rotation(s[i * ld + i], s[j * ld + j], s[i * ld + j]);
+    }
+    __syncwarp();
+    for (int k = 0; k < h; ++k) {  // applied one after another
+      const int i = row[k] & 0xffff, j = row[k] >> 16;
+      if (t < n) {
+        float2 ni, nj;
+        if (t == i) {
+          ni = rot[k].nii;
+          nj = rot[k].nij;
+        } else if (t == j) {
+          ni = rot[k].nij;
+          nj = rot[k].njj;
+        } else {
+          // Row update (J^T A): row_i' = c ri - s rj;  row_j' = s ri + c rj
+          const float2 c = rot[k].c, sn = rot[k].s;
+          const float2 ri = s[i * ld + t], rj = s[j * ld + t];
+          ni = csub(cmul(c, ri), cmul(sn, rj));
+          nj = cadd(cmul(sn, ri), cmul(c, rj));
+        }
+        s[i * ld + t] = ni;
+        s[j * ld + t] = nj;
         // columns = transposed rows (complex-symmetric)
-        s[lane * ld + i] = ni;
-        s[lane * ld + j] = nj;
+        s[t * ld + i] = ni;
+        s[t * ld + j] = nj;
       }
       __syncwarp();
     }
@@ -138,17 +176,18 @@ __global__ void eig_cs_kernel(const float2* __restrict__ a,
   // eigenvalues on the diagonal; off-diagonal energy with the diagonal
   // excluded by mask (subtracting it cancels to 0 in f32)
   float off = 0.0f;
-  if (lane < n) {
-    mu[static_cast<size_t>(b) * n + lane] = s[lane * ld + lane];
+  if (t < n) {
+    if (active) mu[static_cast<size_t>(b) * n + t] = s[t * ld + t];
     for (int col = 0; col < n; ++col) {
-      if (col != lane) {
-        const float2 v = s[lane * ld + col];
+      if (col != t) {
+        const float2 v = s[t * ld + col];
         off += v.x * v.x + v.y * v.y;
       }
     }
   }
-  for (int o = 16; o > 0; o >>= 1) off += __shfl_xor_sync(0xffffffffu, off, o);
-  if (lane == 0) resid[b] = sqrtf(fmaxf(off, 0.0f));
+  for (int o = lanes / 2; o > 0; o >>= 1)
+    off += __shfl_xor_sync(0xffffffffu, off, o);
+  if (t == 0 && active) resid[b] = sqrtf(fmaxf(off, 0.0f));
 }
 
 }  // namespace
@@ -158,11 +197,16 @@ __global__ void eig_cs_kernel(const float2* __restrict__ a,
 extern "C" int llck_eig_cs(const void* a, void* mu, void* resid, int batch,
                            int n, int sweeps, void* stream) {
   if (batch <= 0) return 0;
+  const int per_warp = n <= 16 ? 2 : 1;
+  const int per_block = kWarps * per_warp;
   const dim3 block(32, kWarps);
-  const dim3 grid((batch + kWarps - 1) / kWarps);
-  const size_t smem = static_cast<size_t>(kWarps) * n * (n + 1) * sizeof(float2);
+  const dim3 grid((batch + per_block - 1) / per_block);
+  const int h = n / 2;
+  const size_t smem = ((n - 1) * h + 1) / 2 * sizeof(float2) +
+                      static_cast<size_t>(per_block) * n * (n + 1) * sizeof(float2) +
+                      static_cast<size_t>(per_block) * h * sizeof(Rot);
   eig_cs_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(a), static_cast<float2*>(mu),
-      static_cast<float*>(resid), batch, n, sweeps);
+      static_cast<float*>(resid), batch, n, sweeps, per_warp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,63 +9,84 @@
 // stable descending sort of s and of V's columns is done by the wrapper.
 // The plain PyTorch mirror is ops/cuda_linalg.py::gram_svd_plain.
 //
-// Design: one block per matrix, one warp per pair of a round (k/2 warps),
-// lane t owns column t.  The pairs of a round touch disjoint rows, so they
-// rotate in parallel with no change to the result; a __syncthreads separates
-// the rounds.  The three pairwise Gram entries are warp shuffle reductions.
+// Design: one warp per matrix, kWarps matrices per block, and two lanes per
+// pair of a round (k = 24: 12 pairs on 24 lanes; k = 32: 16 on 32).  The
+// pairs of a round touch disjoint rows, so they rotate in parallel with no
+// change to the result.  Each lane of a pair holds every other entry of the
+// pair's two rows of F^T in registers, sums its half of the four pairwise
+// Gram entries there, and one __shfl_xor_sync(.., 1) per sum completes
+// them: IEEE addition is commutative, so both lanes hold the same bits and
+// compute the same c, s and w.  Each lane then rotates its half of the two
+// rows of F^T and of V^T.  A __syncwarp separates the rounds.  F^T and V^T
+// live in shared memory with a padded row stride.
 //
-// Bound: the chain of sweeps * (k-1) rounds, each a row read, four
-// shuffle reductions and a row write in shared memory.  Device memory sees
-// one read of m and one write of s and V^T.
+// What bounds it now: shared-memory traffic.  Each pair step reads and
+// writes four rows of k entries (two of F^T, two of V^T): ~213 GB over the
+// (71680, 24, 24) batch of the main path at 7 sweeps, ~7 ms at the card's
+// aggregate shared-memory bandwidth.  Device memory sees one read of m and
+// one write of s and V^T.  The next step is to keep the rows in registers
+// across rounds.
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kWarps = 4;  // matrices (warps) per block
 
+// H = k / 2 entries of each row per lane.
+template <int H>
 __global__ void gram_svd_kernel(const float2* __restrict__ m,
                                 float* __restrict__ sig,
-                                float2* __restrict__ vt_out, int k,
+                                float2* __restrict__ vt_out, int batch,
                                 int sweeps) {
+  constexpr int k = 2 * H, ld = k + 1, mm = k - 1;
   extern __shared__ float2 smem[];
-  float2* ft = smem;           // F^T rows (= conj(m) rows)
-  float2* vt = smem + k * k;   // V^T rows
   const int lane = threadIdx.x;
-  const int q = threadIdx.y;
-  const int tid = q * 32 + lane;
-  const int nthreads = 32 * blockDim.y;
-  const size_t base = static_cast<size_t>(blockIdx.x) * k * k;
-  for (int e = tid; e < k * k; e += nthreads) {
+  const int b = blockIdx.x * kWarps + threadIdx.y;
+  if (b >= batch) return;  // the whole warp leaves together
+  float2* ft = smem + threadIdx.y * 2 * k * ld;  // F^T rows (= conj(m) rows)
+  float2* vt = ft + k * ld;                      // V^T rows
+  const size_t base = static_cast<size_t>(b) * k * k;
+  for (int e = lane; e < k * k; e += 32) {
     const float2 v = m[base + e];
-    ft[e] = make_float2(v.x, -v.y);
-    vt[e] = make_float2(e / k == e % k ? 1.0f : 0.0f, 0.0f);
+    ft[(e / k) * ld + e % k] = make_float2(v.x, -v.y);
+    vt[(e / k) * ld + e % k] = make_float2(e / k == e % k ? 1.0f : 0.0f, 0.0f);
   }
-  __syncthreads();
+  __syncwarp();
 
-  const int mm = k - 1;
+  const int q = lane >> 1;    // the pair of the round
+  const int half = lane & 1;  // entries half, half + 2, ... of its rows
+  const bool on = q < H;      // k = 24: lanes 24-31 follow along idle
   for (int step = 0; step < sweeps * mm; ++step) {
     const int r = step % mm;
-    int i, j;
-    if (q == 0) {
-      i = k - 1;
-      j = r;
-    } else {
-      i = (r + q) % mm;
-      j = (r - q + mm) % mm;
+    int i = 0, j = 0;
+    if (on) {
+      if (q == 0) {
+        i = k - 1;
+        j = r;
+      } else {
+        i = (r + q) % mm;
+        j = (r - q + mm) % mm;
+      }
     }
-    float2 fi = make_float2(0.0f, 0.0f), fj = fi;
-    if (lane < k) {
-      fi = ft[i * k + lane];
-      fj = ft[j * k + lane];
+    float2 fi[H], fj[H];
+    float gii = 0.0f, gjj = 0.0f, gr = 0.0f, gi = 0.0f;
+    if (on) {  // idle lanes read no row that a pair of this round writes
+#pragma unroll
+      for (int e = 0; e < H; ++e) {
+        fi[e] = ft[i * ld + 2 * e + half];
+        fj[e] = ft[j * ld + 2 * e + half];
+        gii += fi[e].x * fi[e].x + fi[e].y * fi[e].y;
+        gjj += fj[e].x * fj[e].x + fj[e].y * fj[e].y;
+        gr += fi[e].x * fj[e].x + fi[e].y * fj[e].y;
+        gi += fi[e].x * fj[e].y - fi[e].y * fj[e].x;
+      }
     }
-    // pairwise Gram entries of columns i, j of F
-    const float gii = warp_sum(fi.x * fi.x + fi.y * fi.y);
-    const float gjj = warp_sum(fj.x * fj.x + fj.y * fj.y);
-    const float gr = warp_sum(fi.x * fj.x + fi.y * fj.y);
-    const float gi = warp_sum(fi.x * fj.y - fi.y * fj.x);
+    // the pairwise Gram entries of columns i, j of F: both halves; all 32
+    // lanes shuffle (an idle pair of lanes sums zeros and skips)
+    gii += __shfl_xor_sync(0xffffffffu, gii, 1);
+    gjj += __shfl_xor_sync(0xffffffffu, gjj, 1);
+    gr += __shfl_xor_sync(0xffffffffu, gr, 1);
+    gi += __shfl_xor_sync(0xffffffffu, gi, 1);
     const float babs = sqrtf(gr * gr + gi * gi);
     const bool skip = babs <= 1e-7f * sqrtf(gii * gjj) + 1e-30f;
     const float safe_b = skip ? 1.0f : babs;
@@ -84,43 +105,79 @@ __global__ void gram_svd_kernel(const float2* __restrict__ m,
       c = 1.0f;
       s = 0.0f;
     }
-    if (lane < k) {
-      // column rotation (F J): f_i' = c f_i - s conj(w) f_j;
-      //                        f_j' = s f_i + c conj(w) f_j
-      const float2 wf = make_float2(wr * fj.x + wi * fj.y, wr * fj.y - wi * fj.x);
-      ft[i * k + lane] = make_float2(c * fi.x - s * wf.x, c * fi.y - s * wf.y);
-      ft[j * k + lane] = make_float2(s * fi.x + c * wf.x, s * fi.y + c * wf.y);
-      // V' = V J: the V^T rows take the same coefficients
-      const float2 vi = vt[i * k + lane];
-      const float2 vj = vt[j * k + lane];
-      const float2 wv = make_float2(wr * vj.x + wi * vj.y, wr * vj.y - wi * vj.x);
-      vt[i * k + lane] = make_float2(c * vi.x - s * wv.x, c * vi.y - s * wv.y);
-      vt[j * k + lane] = make_float2(s * vi.x + c * wv.x, s * vi.y + c * wv.y);
+    if (on) {
+#pragma unroll
+      for (int e = 0; e < H; ++e) {
+        const int col = 2 * e + half;
+        // column rotation (F J): f_i' = c f_i - s conj(w) f_j;
+        //                        f_j' = s f_i + c conj(w) f_j
+        const float2 wf = make_float2(wr * fj[e].x + wi * fj[e].y,
+                                      wr * fj[e].y - wi * fj[e].x);
+        ft[i * ld + col] = make_float2(c * fi[e].x - s * wf.x, c * fi[e].y - s * wf.y);
+        ft[j * ld + col] = make_float2(s * fi[e].x + c * wf.x, s * fi[e].y + c * wf.y);
+        // V' = V J: the V^T rows take the same coefficients
+        const float2 vi = vt[i * ld + col];
+        const float2 vj = vt[j * ld + col];
+        const float2 wv = make_float2(wr * vj.x + wi * vj.y, wr * vj.y - wi * vj.x);
+        vt[i * ld + col] = make_float2(c * vi.x - s * wv.x, c * vi.y - s * wv.y);
+        vt[j * ld + col] = make_float2(s * vi.x + c * wv.x, s * vi.y + c * wv.y);
+      }
     }
-    __syncthreads();
+    __syncwarp();  // the next round pairs rows other lanes wrote
   }
 
-  for (int l = q; l < k; l += blockDim.y) {
-    float2 f = make_float2(0.0f, 0.0f);
-    if (lane < k) f = ft[l * k + lane];
-    const float ss = warp_sum(f.x * f.x + f.y * f.y);
-    if (lane == 0) sig[static_cast<size_t>(blockIdx.x) * k + l] = sqrtf(ss);
+  for (int l = lane; l < k; l += 32) {
+    float ss = 0.0f;
+    for (int e = 0; e < k; ++e) {
+      const float2 f = ft[l * ld + e];
+      ss += f.x * f.x + f.y * f.y;
+    }
+    sig[static_cast<size_t>(b) * k + l] = sqrtf(ss);
   }
-  for (int e = tid; e < k * k; e += nthreads) vt_out[base + e] = vt[e];
+  for (int e = lane; e < k * k; e += 32)
+    vt_out[base + e] = vt[(e / k) * ld + e % k];
+}
+
+template <int H>
+int launch(const void* m, void* sig, void* vt, int batch, int sweeps,
+           cudaStream_t stream) {
+  constexpr int k = 2 * H;
+  const size_t smem = static_cast<size_t>(kWarps) * 2 * k * (k + 1) * sizeof(float2);
+  if (smem > 48 * 1024) {  // k = 32: 67.6 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        gram_svd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 block(32, kWarps);
+  const dim3 grid((batch + kWarps - 1) / kWarps);
+  gram_svd_kernel<H><<<grid, block, smem, stream>>>(
+      static_cast<const float2*>(m), static_cast<float*>(sig),
+      static_cast<float2*>(vt), batch, sweeps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // m: (batch, k, k) complex64, k even, 2 <= k <= 32.  sig: (batch, k)
 // float32, unsorted.  vt: (batch, k, k) complex64, V^T.  Returns
-// cudaGetLastError().
+// cudaGetLastError() (cudaErrorInvalidValue for another k).
 extern "C" int llck_gram_svd(const void* m, void* sig, void* vt, int batch,
                              int k, int sweeps, void* stream) {
   if (batch <= 0) return 0;
-  const dim3 block(32, k / 2);
-  const size_t smem = 2 * static_cast<size_t>(k) * k * sizeof(float2);
-  gram_svd_kernel<<<batch, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(m), static_cast<float*>(sig),
-      static_cast<float2*>(vt), k, sweeps);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (k) {
+#define LLCK_GRAM_SVD_CASE(H) \
+  case 2 * H:                 \
+    return launch<H>(m, sig, vt, batch, sweeps, st);
+    LLCK_GRAM_SVD_CASE(1) LLCK_GRAM_SVD_CASE(2) LLCK_GRAM_SVD_CASE(3)
+    LLCK_GRAM_SVD_CASE(4) LLCK_GRAM_SVD_CASE(5) LLCK_GRAM_SVD_CASE(6)
+    LLCK_GRAM_SVD_CASE(7) LLCK_GRAM_SVD_CASE(8) LLCK_GRAM_SVD_CASE(9)
+    LLCK_GRAM_SVD_CASE(10) LLCK_GRAM_SVD_CASE(11) LLCK_GRAM_SVD_CASE(12)
+    LLCK_GRAM_SVD_CASE(13) LLCK_GRAM_SVD_CASE(14) LLCK_GRAM_SVD_CASE(15)
+    LLCK_GRAM_SVD_CASE(16)
+#undef LLCK_GRAM_SVD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

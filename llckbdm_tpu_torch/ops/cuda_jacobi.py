@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-MAX_N = 32  # one warp per matrix, lane t owns column t
+MAX_N = 32  # lane t owns column t: two matrices per warp up to n = 16, then one
 
 
 def _rr_pair(r: int, k: int, n: int) -> tuple[int, int]:

@@ -21,17 +21,18 @@ import torch.nn.functional as F
 from . import _build
 from .cuda_jacobi import _rr_pair
 
-MAX_K = 32  # one warp (or one warp per pair) spans a row
+MAX_K = 32        # gram_svd, cholqr_rinv: one lane (or two per pair) per column
+MAX_K_SOLVE = 64  # chol_solve: each lane owns columns t and t + 32
 
 
-def _check_square(name: str, g: torch.Tensor) -> int:
+def _check_square(name: str, g: torch.Tensor, max_k: int = MAX_K) -> int:
     if g.dtype != torch.complex64:
         raise TypeError(f"{name}: need complex64, got {g.dtype}")
     if g.ndim < 2 or g.shape[-1] != g.shape[-2]:
         raise ValueError(f"{name}: need (..., k, k), got {tuple(g.shape)}")
     k = g.shape[-1]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{name}: k={k} outside [1, {MAX_K}]")
+    if not 1 <= k <= max_k:
+        raise ValueError(f"{name}: k={k} outside [1, {max_k}]")
     if g.numel() // (k * k) >= 2 ** 31:
         raise ValueError(f"{name}: batch too large for one launch")
     return k
@@ -212,10 +213,10 @@ def _cholqr_flat(g: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
 def chol_solve(g: torch.Tensor, b: torch.Tensor, shift) -> torch.Tensor:
     """Solve (G + shift I) x = b for Hermitian PSD G, batched.
 
-    g : (..., k, k) complex64, k <= 32;  b : (..., k) complex64;  shift :
+    g : (..., k, k) complex64, k <= 64;  b : (..., k) complex64;  shift :
     (...,) absolute diagonal shift (Tikhonov).  Returns (..., k) complex64.
     """
-    k = _check_square("chol_solve", g)
+    k = _check_square("chol_solve", g, MAX_K_SOLVE)
     if b.dtype != torch.complex64 or b.shape != g.shape[:-1]:
         raise ValueError(f"chol_solve: b must be complex64 {tuple(g.shape[:-1])}, "
                          f"got {b.dtype} {tuple(b.shape)}")
@@ -238,7 +239,7 @@ def chol_solve(g: torch.Tensor, b: torch.Tensor, shift) -> torch.Tensor:
 
 def chol_solve_plain(g: torch.Tensor, b: torch.Tensor, shift) -> torch.Tensor:
     """The plain PyTorch version of the kernel, on any device."""
-    k = _check_square("chol_solve", g)
+    k = _check_square("chol_solve", g, MAX_K_SOLVE)
     flat = g.reshape(-1, k, k)
     _build.count_plain("chol_solve", flat)
     return _chol_solve_flat(flat, b.reshape(-1, k),

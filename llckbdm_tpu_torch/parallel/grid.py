@@ -121,7 +121,7 @@ def fit_and_refine_grid(c_np: np.ndarray, dwell: float, cfg: LlcKbdmConfig,
 
     c_np : (V, N) complex128 host array of voxel signals.
     Every consolidated slot is refined: the (2C, 2C) normal equations go to
-    the chol_solve kernel on a GPU, which takes 2C <= 32, so C <= 16 there.
+    the chol_solve kernel on a GPU, which takes 2C <= 64, so C <= 32 there.
     The first rank of each 'time' group fits the group's rows and broadcasts
     the consolidated lines and counts over the group, so that every rank
     refines from the same bits.

@@ -1,0 +1,95 @@
+"""The least time an NVIDIA H100 SXM could take for each kernel's work.
+
+For each of the six kernels, the floating-point operations and the device
+memory bytes of one call, from its shapes and sweep counts: each input read
+once, each output written once, whatever the kernel reads again.  The bound
+is the larger of operations over the float32 peak outside the tensor cores
+and bytes over the memory rate, at the card's full 700 W (the published
+peaks of the H100 SXM data sheet), and ``by`` says which of the two binds.
+
+Operation counts, real flops (a complex multiply-add is 8):
+
+* eig_cs: per rotation 28n for the two rotated rows (lane-parallel) and
+  ~200 for the rotation parameters and the 2x2 entry fix; sweeps (n-1) n/2
+  rotations per matrix, and 3n^2 for the off-diagonal counter.
+* gram_svd: per pair step 16k for the four pairwise Gram sums, 36k for the
+  rotation of two rows of F^T and two of V^T, and ~32 for the parameters;
+  sweeps (k-1) k/2 pair steps per matrix, and 4k^2 for the final norms.
+* cholqr_rinv: the Cholesky factor (4k^3/3) and the triangular inverse
+  (4k^3/3).
+* chol_solve: the Cholesky factor (4k^3/3) and two triangular solves (8k^2
+  each).
+* row_probe: per step 6n for the two rows and 3 for (c, s).
+* eigh_probe: per pair ~25 for the coefficients, 18n for the two rows of S
+  and 18n for the two of V (each only in the variants that rotate them),
+  and 8n^2 for the two norms.
+
+Pure arithmetic on shapes: runs on any machine.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+PEAK_FLOPS = 67e12      # float32 outside the tensor cores, H100 SXM
+PEAK_BYTES = 3.35e12    # HBM3, H100 SXM
+C64, F32, I32 = 8, 4, 4  # bytes per element
+
+
+class Bound(NamedTuple):
+    flops: float
+    bytes: float
+    ms: float           # max(flops / PEAK_FLOPS, bytes / PEAK_BYTES) in ms
+    by: str             # "operations" or "bytes": the term that binds
+
+
+def bound(flops: float, nbytes: float) -> Bound:
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return Bound(float(flops), float(nbytes), 1e3 * max(t_ops, t_bytes), by)
+
+
+def _rounds(n: int, sweeps: int) -> int:
+    """Pair steps per matrix: sweeps rounds of n - 1, each of n/2 pairs."""
+    return sweeps * (n - 1) * (n // 2)
+
+
+def eig_cs(batch: int, n: int, sweeps: int) -> Bound:
+    """(batch, n, n) complex64 in; mu (batch, n) complex64 and the counter
+    (batch,) float32 out."""
+    flops = batch * (_rounds(n, sweeps) * (28 * n + 200) + 3 * n * n)
+    return bound(flops, batch * (n * n * C64 + n * C64 + F32))
+
+
+def gram_svd(batch: int, k: int, sweeps: int) -> Bound:
+    """(batch, k, k) complex64 in; s (batch, k) float32 and V (batch, k, k)
+    complex64 out."""
+    flops = batch * (_rounds(k, sweeps) * (52 * k + 32) + 4 * k * k)
+    return bound(flops, batch * (2 * k * k * C64 + k * F32))
+
+
+def cholqr_rinv(batch: int, k: int) -> Bound:
+    """G (batch, k, k) complex64 and the shift (batch,) in; R^-1 out."""
+    return bound(batch * 8 * k ** 3 / 3, batch * (2 * k * k * C64 + F32))
+
+
+def chol_solve(batch: int, k: int) -> Bound:
+    """G (batch, k, k), b (batch, k) and the shift (batch,) in; x out."""
+    flops = batch * (4 * k ** 3 / 3 + 16 * k * k)
+    return bound(flops, batch * (k * k * C64 + 2 * k * C64 + F32))
+
+
+def row_probe(batch: int, n: int, steps: int) -> Bound:
+    """(batch, n, n) float32 and a (steps, 2) int32 schedule in; (batch, n,
+    n) float32 out."""
+    return bound(batch * steps * (6 * n + 3),
+                 batch * 2 * n * n * F32 + steps * 2 * I32)
+
+
+def eigh_probe(batch: int, n: int, sweeps: int, do_rows: bool = True,
+               do_v: bool = True) -> Bound:
+    """(batch, n, n) complex64 in; w (batch, n) and three checksums (batch,
+    3) float32 out."""
+    per_pair = 25 + (18 * n if do_rows else 0) + (18 * n if do_rows and do_v
+                                                  else 0)
+    flops = batch * (_rounds(n, sweeps) * per_pair + 8 * n * n)
+    return bound(flops, batch * (n * n * C64 + n * F32 + 3 * F32))

@@ -20,7 +20,7 @@ from llckbdm_tpu_torch.ops import _build, cuda_jacobi, cuda_linalg, cuda_probes
 from llckbdm_tpu_torch.parallel import GridRunner
 from llckbdm_tpu_torch.pipeline.llckbdm import LlcKbdmConfig
 from llckbdm_tpu_torch.signals import LineList, line_list_from_np, sample_signal
-from llckbdm_tpu_torch.solver.kbdm import KbdmConfig
+from llckbdm_tpu_torch.solver.kbdm import KbdmConfig, kbdm_sweep
 from llckbdm_tpu_torch.solver.refine import RefineConfig, refine_lines
 from llckbdm_tpu_torch.tools import bench_eigh_variants, kernel_smoke
 
@@ -47,13 +47,33 @@ def _cs_matrices(rng, b, n):
     return a.astype(np.complex64)
 
 
+def _reduced(cuda, p, voxels=8):
+    """Production reduced matrices of the KBDM sweep at rank p on the card:
+    chip_smoke's noisy config-1 signals (N=512), m = 120..256 step 8."""
+    rng = np.random.default_rng(p)
+    base = np.array([[1.0, 0.05, -120.0, 0.1], [0.8, 0.08, -40.0, 0.0],
+                     [1.2, 0.03, 15.0, -0.2], [0.5, 0.10, 90.0, 0.3],
+                     [0.9, 0.06, 200.0, 0.0]])
+    sigs = []
+    for _ in range(voxels):
+        lines = base + [[0, 0, x, 0] for x in rng.normal(scale=2.0, size=5)]
+        sigs.append(sample_signal(line_list_from_np(lines), 512, DWELL).numpy()
+                    + 1e-4 * (rng.standard_normal(512)
+                              + 1j * rng.standard_normal(512)))
+    c = torch.as_tensor(np.stack(sigs), device=cuda).to(torch.complex64)
+    ut = kbdm_sweep(c, DWELL, tuple(range(120, 257, 8)), KbdmConfig(p=p),
+                    _stop="reduced")
+    return ut.reshape(-1, p, p).contiguous()
+
+
 def _crandn(rng, *shape):
     return (rng.standard_normal(shape)
             + 1j * rng.standard_normal(shape)).astype(np.complex64)
 
 
 def _grams(rng, b, k):
-    y = _crandn(rng, b, 64, k)
+    """Well-conditioned y^H y, y (b, max(64, 2k), k)."""
+    y = _crandn(rng, b, max(64, 2 * k), k)
     return np.einsum("bij,bik->bjk", y.conj(), y)
 
 
@@ -69,12 +89,19 @@ def _matched(x, y):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 15])
+@pytest.mark.parametrize("n", [16, 15, 24])
 def test_eig_cs_kernel_matches_plain(cuda, n):
-    a = torch.from_numpy(_cs_matrices(np.random.default_rng(n), 128, n)).to(cuda)
+    # n = 24 (config 2's p) on production reduced matrices: ten sweeps leave
+    # the synthetic family unconverged in either version at that size
+    if n == 24:
+        a = _reduced(cuda, n)
+    else:
+        a = torch.from_numpy(_cs_matrices(np.random.default_rng(n), 128,
+                                          n)).to(cuda)
+    _build.reset_counts()
     mu_k, res_k = cuda_jacobi.eig_cs_resid(a, CFG.eig_sweeps)
     mu_p, res_p = cuda_jacobi.eig_cs_resid_plain(a, CFG.eig_sweeps)
-    assert mu_k.shape == (128, n) and res_k.shape == (128,)
+    assert mu_k.shape == (a.shape[0], n) and res_k.shape == (a.shape[0],)
     assert dict(_build.LAUNCHES) == {"eig_cs": 1}
     assert dict(_build.PLAIN_ON_CUDA) == {"eig_cs": 1}
     # The same f32 algorithm, but complex-orthogonal rotations amplify
@@ -104,7 +131,7 @@ def test_eig_cs_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [K, K - 1])
+@pytest.mark.parametrize("k", [K, K - 1, cuda_linalg.MAX_K])
 def test_gram_svd_kernel_matches_plain(cuda, k):
     m = torch.from_numpy(_crandn(np.random.default_rng(k), 256, k, k)).to(cuda)
     s_k, v_k = cuda_linalg.gram_svd(m, CFG.eigh_sweeps)
@@ -132,7 +159,7 @@ def test_cholqr_rinv_kernel_matches_plain(cuda, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [CFG.p, 32, CFG.p - 1, 31])
+@pytest.mark.parametrize("k", [CFG.p, 32, CFG.p - 1, 31, 64, 63])
 def test_chol_solve_kernel_matches_plain(cuda, k):
     rng = np.random.default_rng(k)
     g = torch.from_numpy(_grams(rng, 256, k)).to(cuda)

@@ -44,7 +44,9 @@ def _matched(x, y):
     return np.array(out)
 
 
-def _grams(rng, b, k, rows=64):
+def _grams(rng, b, k):
+    """Well-conditioned y^H y, y (b, max(64, 2k), k)."""
+    rows = max(64, 2 * k)
     y = rng.standard_normal((b, rows, k)) + 1j * rng.standard_normal((b, rows, k))
     return np.einsum("bij,bik->bjk", y.conj(), y).astype(np.complex64)
 
@@ -123,7 +125,7 @@ def test_cholqr_rinv_plain_matches_pallas():
                                    atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [16, 32])
+@pytest.mark.parametrize("k", [16, 32, 64, 63])
 def test_chol_solve_plain_matches_pallas(k):
     rng = np.random.default_rng(k)
     g = _grams(rng, 5, k)
@@ -150,6 +152,16 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         cuda_linalg.chol_solve(torch.zeros(2, 4, 4, dtype=torch.complex64),
                                torch.zeros(2, 3, dtype=torch.complex64), 0.0)
+    # each wrapper has its own limit: the solve takes the 64 x 64 normal
+    # equations of 32 clusters, the others one lane (or two) per column
+    with pytest.raises(ValueError, match=r"\[1, 64\]"):
+        cuda_linalg.chol_solve(torch.zeros(1, 65, 65, dtype=torch.complex64),
+                               torch.zeros(1, 65, dtype=torch.complex64), 0.0)
+    with pytest.raises(ValueError, match=r"\[1, 32\]"):
+        cuda_linalg.cholqr_rinv(torch.zeros(1, 33, 33, dtype=torch.complex64),
+                                0.0)
+    with pytest.raises(ValueError, match=r"\[1, 32\]"):
+        cuda_jacobi.eig_cs(torch.zeros(1, 33, 33, dtype=torch.complex64))
 
 
 def test_cpu_tensors_take_the_plain_versions_uncounted():

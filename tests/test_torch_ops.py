@@ -137,6 +137,19 @@ FORBIDDEN = re.compile(r"torch\.linalg\.(eig|eigh|eigvals|cholesky|solve|svd)\b"
                        r"|torch\.compile\b|scaled_dot_product_attention")
 
 
+def _without_yardsticks(src: str) -> str:
+    """chip_smoke.py without its table of library yardsticks, the one
+    module-level ``LIBRARY = {...}`` assignment: the PyTorch calls that
+    ``cuda_ms`` times beside the kernels and that nothing else calls."""
+    tables = [node for node in ast.parse(src).body
+              if isinstance(node, ast.Assign)
+              and [getattr(t, "id", None) for t in node.targets] == ["LIBRARY"]]
+    assert len(tables) == 1
+    lines = src.splitlines(keepends=True)
+    del lines[tables[0].lineno - 1:tables[0].end_lineno]
+    return "".join(lines)
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_file_imports_no_jax_and_no_library_kernels(path):
     src = (ROOT / path).read_text()
@@ -149,4 +162,6 @@ def test_port_file_imports_no_jax_and_no_library_kernels(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "llckbdm_tpu"), (path, name)
+    if path == "chip_smoke.py":
+        src = _without_yardsticks(src)
     assert not FORBIDDEN.search(src), (path, FORBIDDEN.search(src).group(0))

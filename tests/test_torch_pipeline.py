@@ -82,6 +82,44 @@ def test_refine_from_same_lines_as_jax_hits_gate(five_peak_params, seed,
     assert oracle.line_errors(est, jest).max() < 2e-8
 
 
+def test_refine_32_clusters_matches_jax(five_peak_params):
+    """At the pipeline's default max_clusters=32 the GN normal equations are
+    64 x 64 (chol_solve's widest case): the 5 strong lines of the noisy JAX
+    f32 stage, scattered over 32 slots among masked ones, refine on both
+    sides to the oracle's fixed point (1e-8) and to each other (2e-8)."""
+    dwell, slots = 5e-4, 32
+    params, sig = _noisy_config1(five_peak_params, 1, 1e-4, dwell)
+    init = lt.line_list_to_np(lt.kbdm_fit(from_np(sig), dwell, 180, CFG))
+    init = init[np.argsort(-init[:, 0])[:5]]
+    where = np.array([2, 9, 15, 22, 31])
+    full = np.zeros((slots, 4))
+    full[:, 1] = 1.0                                  # dummy T2 of empty slots
+    full[where] = init
+    mask = np.zeros(slots)
+    mask[where] = 1.0
+    fields = [np.asarray(x, np.float32) for x in (*full.T, mask)]
+    olines = oracle.refine(init, sig, dwell, iters=12)
+    olines = olines[oracle.match_lines(olines, params)]
+    rcfg = lt.RefineConfig(iters=6)
+
+    port = lp.refine_lines(torch.as_tensor(sig), convert.lines_from_np(fields),
+                           dwell, convert.refine_config_from_ref(
+                               dataclasses.asdict(rcfg)))
+    assert port.z.shape == (slots,)
+    assert torch.equal(port.mask, torch.as_tensor(mask, dtype=torch.float32))
+    est = lp.refined_to_np(port, dwell)
+    est = est[oracle.match_lines(est, params)]
+    err = oracle.line_errors(est, olines)
+    assert err.max() < 1e-8, f"max err {err.max():.3e}\n{err}"
+
+    ref = lt.refine_lines(D.dfc_from_np(sig),
+                          lt.LineList(*(jnp.asarray(x) for x in fields)),
+                          dwell, rcfg)
+    jest = lt.refined_to_np(ref, dwell)
+    jest = jest[oracle.match_lines(jest, params)]
+    assert oracle.line_errors(est, jest).max() < 2e-8
+
+
 def test_refine_f32_warmstart_hits_gate(five_peak_params):
     dwell = 5e-4
     params = five_peak_params
@@ -166,7 +204,8 @@ def test_llc_kbdm_default_device_is_cuda(five_peak_signal):
 
 def test_import_does_not_load_jax():
     code = ("import sys, llckbdm_tpu_torch, llckbdm_tpu_torch.convert, "
-            "llckbdm_tpu_torch.parallel; "
+            "llckbdm_tpu_torch.parallel, llckbdm_tpu_torch.oracle, "
+            "llckbdm_tpu_torch.tools.bounds; "
             "sys.exit(1 if 'jax' in sys.modules or 'llckbdm_tpu' in "
             "sys.modules else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
