@@ -8,8 +8,10 @@
    ``llckbdm_tpu_torch/csrc`` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (eig_cs on the production reduced matrices of the V=2048
-   sweep) and once more at an odd size (gram_svd also at k=32, chol_solve
-   also at the 64 x 64 Gauss-Newton solve of 32 clusters), timed with CUDA
+   sweep) and once more at an odd size (gram_svd also at k=32; cholqr_rinv
+   and chol_solve at every compiled size, at sizes padded up inside the
+   kernel, and chol_solve at the 64 x 64 Gauss-Newton solve of 32
+   clusters), timed with CUDA
    events (``llckbdm_tpu_torch.tools.timing.cuda_ms``: median of 5 windows
    of up to 200 launches or 100 ms; a call over 100 ms is timed once),
    beside the card's least time for the same work
@@ -17,8 +19,14 @@
    computes the same function, that call's time (``LIBRARY``: linalg's
    eigvals, svd and solve, yardsticks the port never calls).  chol_solve is
    timed at three shapes: the amplitudes, and the 32 x 32 and 64 x 64
-   Gauss-Newton solves.  After the main path, the kernels are printed in
-   the order a redesign should take them.
+   Gauss-Newton solves.  cholqr_rinv is also held, beside its plain
+   version, to its contract R^-H (G + shift I) R^-1 = I in float64 on the
+   production Gram matrices of the V=2048 sweep, which are rank-deficient:
+   the second power iteration's at its 1e-4 shift and the two final
+   passes' at 3e-6.  What each instantiation of the two Cholesky kernels
+   takes of an SM (registers, shared and local bytes, resident warps) is
+   printed from the CUDA runtime.  After the main path, the kernels are
+   printed in the order a redesign should take them.
 3. The main path at the bench's north-star size (V=2048 voxels, N=512,
    m = 120..256 step 4, p=16): llc_kbdm_fit, then refine_lines on the top
    16 clusters with 6 Gauss-Newton iterations.  Every kernel must have been
@@ -27,7 +35,9 @@
    refined lines within 1e-8 of the float64 oracle's Gauss-Newton polish on
    the 8 voxels with the largest last GN step.  Then one more run of the
    main path under torch.profiler: the device's busy time, its idle share
-   of the unprofiled run's wall time, and the largest consumers.
+   of the unprofiled run's wall time, the largest consumers, and each
+   hand-written kernel's device time per launch (the 32 x 32 Gauss-Newton
+   solve is too short for an event window to show its device time).
 5. The two tool kernels, each through its tool's path with the launch
    counts set to 0 before and read after: ``tools.kernel_smoke.run``
    (row_probe against its numpy loop) and ``tools.bench_eigh_variants``'
@@ -248,6 +258,70 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().amax() / b.abs().amax()).item()
 
 
+def contract_error(x: torch.Tensor, g: torch.Tensor, sh: torch.Tensor,
+                   chunk: int = 8192) -> float:
+    """max |X^H (G + shift I) X - I| in float64 over a batch of k x k
+    matrices: 0 for X = R^-1 of the Cholesky factor G + shift I = R^H R."""
+    k = g.shape[-1]
+    eye = torch.eye(k, dtype=torch.complex128, device=g.device)
+    worst = 0.0
+    for s0 in range(0, g.shape[0], chunk):
+        x64 = x[s0:s0 + chunk].to(torch.complex128)
+        gs = (g[s0:s0 + chunk].to(torch.complex128)
+              + sh[s0:s0 + chunk].double()[:, None, None] * eye)
+        worst = max(worst, (x64.conj().transpose(-1, -2) @ gs @ x64
+                            - eye).abs().amax().item())
+    return worst
+
+
+def production_gram_checks(c32: torch.Tensor, cfg) -> dict:
+    """cholqr_rinv and its plain version on the Gram matrices the V=2048
+    sweep hands the kernel.  They are numerically rank-deficient (five lines
+    in a 24-wide block), some pivots are of the size of the shift, and
+    another summation order changes them; so the two are not compared entry
+    by entry but each held to the contract R^-H (G + shift I) R^-1 = I in
+    float64, to 0.2 k eps / shift_rel (the bound of the rank-5 tests in
+    tests/test_torch_kernels.py), with finite outputs."""
+    from llckbdm_tpu_torch import kbdm_sweep
+    from llckbdm_tpu_torch.ops import cuda_linalg
+
+    kcfg = cfg.kbdm
+    k = kcfg.p + kcfg.oversample
+    cases = (
+        ("power iteration 2", 1e-4, "powiter",
+         dataclasses.replace(kcfg, subspace_iters=kcfg.subspace_iters - 1)),
+        ("final pass 1", 3e-6, "powiter", kcfg),
+        ("final pass 2", 3e-6, "basis",
+         dataclasses.replace(kcfg, final_orth_passes=1)),
+    )
+    out = {}
+    for label, shift_rel, stop, case_cfg in cases:
+        y = kbdm_sweep(c32, DWELL, cfg.m_values, case_cfg, _stop=stop)
+        g = torch.einsum("vmsk,vmsl->vskl", y.conj(), y)
+        del y
+        g = (0.5 * (g + g.transpose(-1, -2).conj())).reshape(-1, k, k)
+        sh = shift_rel * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
+        bound = 0.2 * k * float(np.finfo(np.float32).eps) / shift_rel
+        errs = {}
+        for name, fn in (("kernel", cuda_linalg.cholqr_rinv),
+                         ("plain", cuda_linalg.cholqr_rinv_plain)):
+            x = fn(g, sh)
+            check(bool(torch.isfinite(torch.view_as_real(x)).all()),
+                  f"cholqr_rinv {name}: non-finite R^-1 on the production "
+                  f"Grams of {label}")
+            errs[name] = contract_error(x, g, sh)
+        print(f"cholqr_rinv on production Grams, {label} {tuple(g.shape)}, "
+              f"shift {shift_rel:g} x mean diagonal: |R^-H (G + shift I) "
+              f"R^-1 - I| kernel {errs['kernel']:.3e}, plain "
+              f"{errs['plain']:.3e} (< {bound:.3e}); all finite", flush=True)
+        check(max(errs.values()) < bound,
+              f"cholqr_rinv misses its contract on the production Grams of "
+              f"{label}: {errs}")
+        out[label] = dict(shift_rel=shift_rel, bound=bound, **errs)
+        del g, x
+    return out
+
+
 def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     """Each kernel against its plain version on the same CUDA inputs."""
     from llckbdm_tpu_torch.ops import cuda_jacobi, cuda_linalg
@@ -322,21 +396,23 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
 
     # cholqr_rinv and chol_solve on well-conditioned Gram matrices: the same
     # f32 operations in another summation order, so 1e-5 relative
+    # (the kernel is compiled at 16, 24 and 32; any other size is padded up
+    # inside it: 23 and 20 run in the 24-wide one, 31 in the 32-wide)
     worst = 0.0
-    for kk, b in ((k, batch), (k - 1, 4096)):
+    for kk, b in ((k, batch), (k - 1, 4096), (16, 4096), (20, 4096),
+                  (cuda_linalg.MAX_K, 4096), (cuda_linalg.MAX_K - 1, 4096)):
         g = gram(gen, b, kk)
         sh = 3e-6 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
         x_k = cuda_linalg.cholqr_rinv(g, sh)
         x_p = cuda_linalg.cholqr_rinv_plain(g, sh)
         e = rel_err(x_k, x_p)
         # and the contract itself, in float64: R^-H (G + shift I) R^-1 = I
-        x64 = x_k.to(torch.complex128)
-        eye = torch.eye(kk, dtype=torch.complex128, device=DEVICE)
-        gs = g.to(torch.complex128) + sh.double()[:, None, None] * eye
-        orth = (x64.conj().transpose(-1, -2) @ gs @ x64 - eye).abs().amax().item()
+        orth = contract_error(x_k, g, sh)
         print(f"cholqr_rinv ({b}, {kk}, {kk}): max rel err {e:.3e}, "
               f"|R^-H G R^-1 - I| {orth:.3e}")
         check(e < 1e-5 and orth < 1e-4, f"cholqr_rinv k={kk} disagrees")
+        check(not bool(x_k.tril(-1).any()),
+              f"cholqr_rinv k={kk}: R^-1 is not zero below the diagonal")
         worst = max(worst, (x_k - x_p).abs().max().item())
     g = gram(gen, batch, k)
     sh = 3e-6 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
@@ -355,7 +431,7 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     p, v = cfg.p, ut.shape[0]
     gn, wide = 2 * REFINE_CLUSTERS, cuda_linalg.MAX_K_SOLVE
     for kk, b in ((p, batch), (gn, v), (wide, v), (p - 1, 4096),
-                  (gn - 1, 4096), (wide - 1, 4096)):
+                  (gn - 1, 4096), (wide - 1, 4096), (20, 4096), (40, 4096)):
         g = gram(gen, b, kk)
         rhs = crandn(gen, b, kk)
         sh = 1e-7 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
@@ -388,6 +464,18 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
         **{f"{key}_gn": val for key, val in timing[gn].items()},
         shape_gn64=[v, wide, wide],
         **{f"{key}_gn64": val for key, val in timing[wide].items()})
+    # what each compiled size of the two Cholesky kernels takes of an SM
+    for name, sizes in (("cholqr_rinv", (16, k, cuda_linalg.MAX_K)),
+                        ("chol_solve", (p, gn, wide))):
+        out[name]["resources"] = [cuda_linalg.chol_kernel_resources(name, kk)
+                                  for kk in sizes]
+        for res in out[name]["resources"]:
+            print(f"{name}<{res['K']}>: {res['registers']} registers a "
+                  f"thread, {res['shared_bytes']} B shared a block of "
+                  f"{res['threads']} threads, {res['local_bytes']} B local "
+                  f"a thread, {res['blocks_per_sm']} blocks = "
+                  f"{res['warps_per_sm']} warps resident an SM")
+            check(res["local_bytes"] == 0, f"{name}<{res['K']}> spills")
     return out
 
 
@@ -778,8 +866,16 @@ def profile_main_path(main_path, wall_ms: float) -> dict:
     for t in top:
         print(f"  {t['ms']:9.3f} ms {t['share']:.4f} x{t['calls']:<5} "
               f"{t['name']}")
+    # each hand-written kernel's own device time: a launch too short for an
+    # event window to show it (the GN solve) has its number here
+    own = [{"name": key[:120], "calls": n, "ms": ms, "ms_per_call": ms / n}
+           for ms, n, key in rows if kind(key) == "hand-written kernels"]
+    print("hand-written kernels, device time per launch: " + "; ".join(
+        f"{t['name'].split('::')[-1].split('(')[0]} x{t['calls']} "
+        f"{t['ms_per_call']:.4f} ms" for t in own), flush=True)
     return {"busy_ms": busy, "wall_ms": wall_ms, "idle_share": idle,
-            "profiled_window_ms": window_ms, "by_kind_ms": kinds, "top": top}
+            "profiled_window_ms": window_ms, "by_kind_ms": kinds, "top": top,
+            "hand_written": own}
 
 
 def rank_kernels(results: dict) -> None:
@@ -852,6 +948,7 @@ def main() -> int:
                         _stop="reduced")
     results = kernel_checks(ut, ut_odd, cfg.kbdm)
     del ut, ut_odd
+    results["cholqr_rinv"]["production_grams"] = production_gram_checks(c32, cfg)
 
     # --- the main path ----------------------------------------------------
     def top(lines):
@@ -921,6 +1018,16 @@ def main() -> int:
 
     # --- where the main path's device time goes ---------------------------
     prof = profile_main_path(main_path, (t_fit + t_refine) * 1e3)
+    # the GN solve's instantiation is the only kernel launched GN_ITERS times
+    gn_rows = [t for t in prof["hand_written"]
+               if "chol_solve_kernel" in t["name"] and t["calls"] == GN_ITERS]
+    check(len(gn_rows) == 1, f"the profile's GN solve rows: {gn_rows}")
+    results["chol_solve"]["device_ms_gn"] = gn_rows[0]["ms_per_call"]
+    print(f"chol_solve GN ({VOXELS}, {2 * REFINE_CLUSTERS}, "
+          f"{2 * REFINE_CLUSTERS}): device time {gn_rows[0]['ms_per_call']:.4f}"
+          f" ms a launch in the profiled run (event windows, which include "
+          f"the host's launch rate: {results['chol_solve']['ms_gn']:.4f} ms; "
+          f"bound {results['chol_solve']['bound_ms_gn']:.4f} ms)", flush=True)
 
     # --- the tool kernels -------------------------------------------------
     results.update(probe_checks())

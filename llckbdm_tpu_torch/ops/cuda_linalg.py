@@ -15,6 +15,8 @@ the kernel is held against.  None of them is a ``torch.linalg`` routine.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -22,7 +24,7 @@ from . import _build
 from .cuda_jacobi import _rr_pair
 
 MAX_K = 32        # gram_svd, cholqr_rinv: one lane (or two per pair) per column
-MAX_K_SOLVE = 64  # chol_solve: each lane owns columns t and t + 32
+MAX_K_SOLVE = 64  # chol_solve: one lane per column, two warps at k > 32
 
 
 def _check_square(name: str, g: torch.Tensor, max_k: int = MAX_K) -> int:
@@ -148,6 +150,25 @@ def _shift_flat(shift, g: torch.Tensor) -> torch.Tensor:
     batch_shape = g.shape[:-2]
     sh = torch.as_tensor(shift, dtype=torch.float32, device=g.device)
     return torch.broadcast_to(sh, batch_shape).reshape(-1).contiguous()
+
+
+def chol_kernel_resources(kernel: str, k: int) -> dict:
+    """What the instantiation of ``csrc/chol.cu`` that size k runs in takes
+    of an SM, as the CUDA runtime reports it: the compiled size K (k is
+    padded up to it inside the kernel), registers per thread, shared and
+    local (spill and stack) bytes, threads per block, resident blocks and
+    warps per SM.  kernel: "cholqr_rinv" or "chol_solve".  Needs a GPU."""
+    limits = {"cholqr_rinv": MAX_K, "chol_solve": MAX_K_SOLVE}
+    if kernel not in limits or not 1 <= k <= limits[kernel]:
+        raise ValueError(f"chol_kernel_resources: no {kernel!r} at k={k}")
+    out = (ctypes.c_int * 6)()
+    err = _build.library().llck_chol_resources(
+        int(kernel == "chol_solve"), k, ctypes.addressof(out))
+    _build.check("llck_chol_resources", err)
+    big_k, regs, shared, local, threads, blocks = out
+    return {"kernel": kernel, "K": big_k, "registers": regs,
+            "shared_bytes": shared, "local_bytes": local, "threads": threads,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
 
 
 def _chol_inplace(s: torch.Tensor, shift: torch.Tensor) -> None:

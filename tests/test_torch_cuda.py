@@ -145,31 +145,143 @@ def test_gram_svd_kernel_matches_plain(cuda, k):
     torch.testing.assert_close(rec, mm, rtol=0, atol=1e-4 * mm.abs().max().item())
 
 
+def _rel_shift(g, rel):
+    return rel * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
+
+
+def _shifted64(g, sh):
+    k = g.shape[-1]
+    eye = torch.eye(k, dtype=torch.complex128, device=g.device)
+    return g.to(torch.complex128) + sh.double()[:, None, None] * eye
+
+
+def _contract_error(x, g, sh):
+    """max |R^-H (G + shift I) R^-1 - I| in float64."""
+    x64 = x.to(torch.complex128)
+    eye = torch.eye(g.shape[-1], dtype=torch.complex128, device=g.device)
+    return ((x64.conj().transpose(-1, -2) @ _shifted64(g, sh) @ x64)
+            - eye).abs().amax().item()
+
+
+def _rank_deficient(rng, b, k, rank, device):
+    y = torch.from_numpy(_crandn(rng, b, rank, k)).to(device)
+    return y.conj().transpose(-1, -2) @ y
+
+
+# k: the three compiled sizes (16, 24, 32), an odd size under two of them,
+# and one that is padded up inside the kernel (20 runs in the 24-wide one)
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [K, K - 1])
+@pytest.mark.parametrize("k", [K, K - 1, 16, 32, 31, 20])
 def test_cholqr_rinv_kernel_matches_plain(cuda, k):
     g = torch.from_numpy(_grams(np.random.default_rng(k), 256, k)).to(cuda)
-    sh = 3e-6 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
+    sh = _rel_shift(g, 3e-6)
     x_k = cuda_linalg.cholqr_rinv(g, sh)
     x_p = cuda_linalg.cholqr_rinv_plain(g, sh)
     assert dict(_build.LAUNCHES) == {"cholqr_rinv": 1}
     # the same f32 operations in another summation order
     torch.testing.assert_close(x_k, x_p, rtol=0,
                                atol=1e-5 * x_p.abs().max().item())
+    assert torch.equal(x_k.tril(-1), torch.zeros_like(x_k))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [CFG.p, 32, CFG.p - 1, 31, 64, 63])
+@pytest.mark.parametrize("shift_rel", [1e-4, 3e-6])
+def test_cholqr_rinv_kernel_rank_deficient(cuda, shift_rel):
+    """Rank-5 Grams at k = 24 (the power iteration's blocks are such) at the
+    solver's two shifts: pivots of the size of the shift, so kernel and plain
+    version are not compared entry by entry but both held to the contract
+    R^-H (G + shift I) R^-1 = I in float64, to 0.2 k eps / shift_rel (the
+    bound of tests/test_torch_kernels.py), with finite outputs."""
+    g = _rank_deficient(np.random.default_rng(5), 512, K, 5, cuda)
+    sh = _rel_shift(g, shift_rel)
+    bound = 0.2 * K * np.finfo(np.float32).eps / shift_rel
+    for fn in (cuda_linalg.cholqr_rinv, cuda_linalg.cholqr_rinv_plain):
+        x = fn(g, sh)
+        assert bool(torch.isfinite(torch.view_as_real(x)).all())
+        assert _contract_error(x, g, sh) < bound
+    assert dict(_build.LAUNCHES) == {"cholqr_rinv": 1}
+
+
+# k: the three compiled sizes (16, 32, 64), an odd size under each, and two
+# that are padded up inside the kernel (20 in the 32-wide, 40 in the 64-wide)
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [CFG.p, 32, CFG.p - 1, 31, 64, 63, 20, 40])
 def test_chol_solve_kernel_matches_plain(cuda, k):
     rng = np.random.default_rng(k)
     g = torch.from_numpy(_grams(rng, 256, k)).to(cuda)
     b = torch.from_numpy(_crandn(rng, 256, k)).to(cuda)
-    sh = 1e-7 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
+    sh = _rel_shift(g, 1e-7)
     x_k = cuda_linalg.chol_solve(g, b, sh)
     x_p = cuda_linalg.chol_solve_plain(g, b, sh)
     assert dict(_build.LAUNCHES) == {"chol_solve": 1}
     torch.testing.assert_close(x_k, x_p, rtol=0,
                                atol=1e-5 * x_p.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 32, 64])
+def test_chol_solve_kernel_rank_deficient(cuda, k):
+    """Rank-5 Grams with a 1e-4 shift: kernel and plain version both finite,
+    both with a float64 residual |(G + shift I) x - b| <= 0.2 k eps /
+    shift_rel of |b|_max (the null directions amplify the factor's f32
+    rounding by 1 / shift_rel)."""
+    rng = np.random.default_rng(k)
+    g = _rank_deficient(rng, 512, k, 5, cuda)
+    b = torch.from_numpy(_crandn(rng, 512, k)).to(cuda)
+    sh = _rel_shift(g, 1e-4)
+    bound = 0.2 * k * np.finfo(np.float32).eps / 1e-4
+    for fn in (cuda_linalg.chol_solve, cuda_linalg.chol_solve_plain):
+        x = fn(g, b, sh)
+        assert bool(torch.isfinite(torch.view_as_real(x)).all())
+        res = (_shifted64(g, sh) @ x.to(torch.complex128)[..., None])[..., 0] - b
+        assert res.abs().amax().item() < bound * b.abs().amax().item()
+    assert dict(_build.LAUNCHES) == {"chol_solve": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 257])
+def test_chol_kernels_ragged_batches(cuda, batch):
+    """Batches that do not fill the last block (a block holds 8, 4 or 1
+    matrices), at every compiled size: the same as the plain version, and
+    nothing written past the end of the output."""
+    rng = np.random.default_rng(batch)
+    for k in (16, 24, 32):
+        g = torch.from_numpy(_grams(rng, batch, k)).to(cuda)
+        sh = _rel_shift(g, 3e-6)
+        x_p = cuda_linalg.cholqr_rinv_plain(g, sh)
+        torch.testing.assert_close(cuda_linalg.cholqr_rinv(g, sh), x_p, rtol=0,
+                                   atol=1e-5 * x_p.abs().max().item())
+    for k in (16, 32, 64):
+        g = torch.from_numpy(_grams(rng, batch + 1, k)).to(cuda)
+        b = torch.from_numpy(_crandn(rng, batch + 1, k)).to(cuda)
+        sh = _rel_shift(g, 1e-7)
+        x_p = cuda_linalg.chol_solve_plain(g[:batch], b[:batch], sh[:batch])
+        # the kernel's output is a view of a larger buffer: the entry after
+        # the batch keeps its marker
+        buf = torch.full((batch + 1, k), 7.0 + 0j, dtype=torch.complex64,
+                         device=cuda)
+        lib = _build.library()
+        err = lib.llck_chol_solve(g.data_ptr(), b.data_ptr(), sh.data_ptr(),
+                                  buf.data_ptr(), batch, k,
+                                  torch.cuda.current_stream().cuda_stream)
+        _build.check("llck_chol_solve", err)
+        torch.testing.assert_close(buf[:batch], x_p, rtol=0,
+                                   atol=1e-5 * x_p.abs().max().item())
+        assert bool((buf[batch] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_chol_kernel_resources(cuda):
+    """Every instantiation keeps its columns in registers: no local memory
+    (spills or a stack frame), and the padded sizes share their K."""
+    for kernel, sizes in (("cholqr_rinv", {16: 16, 20: 24, 24: 24, 32: 32}),
+                          ("chol_solve", {16: 16, 20: 32, 32: 32, 40: 64,
+                                          64: 64})):
+        for k, big_k in sizes.items():
+            res = cuda_linalg.chol_kernel_resources(kernel, k)
+            assert res["K"] == big_k
+            assert res["local_bytes"] == 0, res
+            assert res["blocks_per_sm"] >= 1, res
 
 
 @pytest.mark.cuda

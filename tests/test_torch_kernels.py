@@ -109,8 +109,8 @@ def test_gram_svd_plain_matches_pallas(k):
             np.testing.assert_allclose(v.conj().T @ v, np.eye(k), atol=1e-4)
 
 
-def test_cholqr_rinv_plain_matches_pallas():
-    k = CFG.p + CFG.oversample
+@pytest.mark.parametrize("k", [CFG.p + CFG.oversample, 16, 23, 32])
+def test_cholqr_rinv_plain_matches_pallas(k):
     g = _grams(np.random.default_rng(3), 5, k)
     shift = (3e-6 * np.einsum("bii->b", g.real) / k).astype(np.float32)
     x_p = to_np(pallas_linalg.cholqr_rinv(from_np(g), shift, interpret=True))
@@ -123,6 +123,41 @@ def test_cholqr_rinv_plain_matches_pallas():
         gs = g[b].astype(complex) + shift[b] * np.eye(k)
         np.testing.assert_allclose(x_t[b].conj().T @ gs @ x_t[b], np.eye(k),
                                    atol=1e-4)
+
+
+def _contract_error(x, g, shift):
+    """max |R^-H (G + shift I) R^-1 - I| in float64, per matrix."""
+    k = g.shape[-1]
+    x = x.astype(complex)
+    gs = g.astype(complex) + shift[:, None, None] * np.eye(k)
+    return np.abs(x.conj().transpose(0, 2, 1) @ gs @ x
+                  - np.eye(k)).max(axis=(-1, -2))
+
+
+@pytest.mark.parametrize("shift_rel", [1e-4, 3e-6])
+def test_cholqr_rinv_rank_deficient(shift_rel):
+    """A rank-5 Gram at k = 24, the shape of the power iteration's blocks (a
+    few lines in a k-wide block), at the solver's two shifts: the plain
+    version and the Pallas kernel both stay finite and both meet the
+    CholeskyQR contract R^-H (G + shift I) R^-1 = I, held in float64.  The
+    19 null directions leave pivots of the size of the shift, so the f32
+    rounding of the factor (~k eps |G|) shows in the contract in proportion
+    to k eps / shift_rel.  Measured: 1.3e-3 at 1e-4 and 4.2e-2 at 3e-6 (both
+    versions alike); the bound is 0.2 k eps / shift_rel, 5.7e-3 and 0.19."""
+    k, rank = CFG.p + CFG.oversample, 5
+    rng = np.random.default_rng(11)
+    y = (rng.standard_normal((6, rank, k))
+         + 1j * rng.standard_normal((6, rank, k)))
+    g = np.einsum("bij,bik->bjk", y.conj(), y).astype(np.complex64)
+    shift = (shift_rel * np.einsum("bii->b", g.real) / k).astype(np.float32)
+    x_p = to_np(pallas_linalg.cholqr_rinv(from_np(g), shift, interpret=True))
+    x_t = cuda_linalg.cholqr_rinv(torch.from_numpy(g),
+                                  torch.from_numpy(shift)).numpy()
+    bound = 0.2 * k * np.finfo(np.float32).eps / shift_rel
+    for x in (x_t, x_p):
+        assert np.isfinite(x).all()
+        err = _contract_error(x, g, shift)
+        assert err.max() < bound, err
 
 
 @pytest.mark.parametrize("k", [16, 32, 64, 63])

@@ -115,6 +115,23 @@ def test_tool_entry_points():
         assert bench_eigh_variants.main() == 2
 
 
+def test_bench_chol_needs_a_gpu_and_covers_every_compiled_size():
+    from llckbdm_tpu_torch.ops import cuda_linalg
+    from llckbdm_tpu_torch.tools import bench_chol
+    if not torch.cuda.is_available():
+        assert bench_chol.main() == 2
+    # the main path's shapes and a size that is padded up, within the limits
+    sizes = {name: {k for _, k in shapes}
+             for name, shapes in bench_chol.SHAPES.items()}
+    assert {16, 24, 32, 20} <= sizes["cholqr_rinv"]
+    assert max(sizes["cholqr_rinv"]) <= cuda_linalg.MAX_K
+    assert {16, 32, 64, 40} <= sizes["chol_solve"]
+    assert max(sizes["chol_solve"]) <= cuda_linalg.MAX_K_SOLVE
+    for kernel, k in (("gram_svd", 24), ("cholqr_rinv", 33), ("chol_solve", 0)):
+        with pytest.raises(ValueError, match="chol_kernel_resources"):
+            cuda_linalg.chol_kernel_resources(kernel, k)
+
+
 @pytest.mark.parametrize("switches", list(cuda_probes.EIGH_VARIANTS.values()),
                          ids=list(cuda_probes.EIGH_VARIANTS))
 @pytest.mark.parametrize("n", [4, 8])
