@@ -38,7 +38,27 @@
    of the unprofiled run's wall time, the largest consumers, and each
    hand-written kernel's device time per launch (the 32 x 32 Gauss-Newton
    solve is too short for an event window to show its device time).
-5. The two tool kernels, each through its tool's path with the launch
+5. The spec-scale gates the JAX package proved on its chip, each a path
+   driven once with the launch counts set to 0 before and read after (every
+   main-path kernel launched, no plain version on a CUDA tensor), each gate
+   asserted: config 2 (the brain signal of data/params_brain_sim.csv,
+   N=2048, kbdm_fit at m=512 with p=24, so k=32; 10 GN iterations; all 16
+   lines in f32, refined within 1e-8 of oracle.kbdm), config 3 (the 46-entry
+   sweep m=120..300 step 4, min_samples 10, all 32 slots refined: 64 x 64
+   solves; within 1e-8 of the truth), config 1 noiseless with 3 GN
+   iterations (within 1e-8 of oracle.kbdm) and the llc_kbdm entry point
+   (refine_iters 6, within 1e-8 of the truth); the Jacobi counter at p=24
+   on the config-2 and config-3 sweeps; cholqr_rinv held to its contract on
+   their Grams.  Then the north star with damping_weight=1.0 (the O(n^2)
+   dbscan on 2-D features; every voxel keeps >= 5 refined lines, the 8
+   voxels with the largest last GN step meet the 1e-8 gate), and dbscan
+   against dbscan_1d on the main path's pooled lines: labels equal on every
+   voxel but those with an exact eps tie, each timed at V=2048 with its
+   peak memory.  Last, each main-path kernel at the widths of configs 2 and
+   3 (eig_cs n=24, gram_svd and cholqr_rinv k=32, chol_solve 24, 48 and 64)
+   on a batch of 2048, against its plain version, timed beside its bound
+   and library call.
+6. The two tool kernels, each through its tool's path with the launch
    counts set to 0 before and read after: ``tools.kernel_smoke.run``
    (row_probe against its numpy loop) and ``tools.bench_eigh_variants``'
    six runs (eigh_probe's invariants and finite w at (4480, 24, 24), 8
@@ -46,7 +66,7 @@
    without i == j in the schedule, and eigh_probe against its plain version
    at n=8 over one sweep in all five variants; the plain eigh probe at the
    tool's size is timed over one call.
-6. The grid layer (``llckbdm_tpu_torch.parallel``) at config-5 size: a
+7. The grid layer (``llckbdm_tpu_torch.parallel``) at config-5 size: a
    GridRunner sweep of 256x256 = 65,536 voxels of tools/config5_run.py's
    signal family in 32 shards of 2048, refined (top 16 clusters, 6 GN
    iterations), with its wall time (host copies and .npz writes included)
@@ -56,7 +76,7 @@
    GN step meet the 1e-8 oracle gate.  Then 3 shard files are deleted: the
    rerun computes exactly 3 shards and gathers bit for bit what the first
    run gathered.
-7. Two ranks on the one card over gloo (spawned processes, file://
+8. Two ranks on the one card over gloo (spawned processes, file://
    rendezvous): with mesh data=1, time=2, the time-sharded refinement of
    the main path's lines against the single-process refinement (z within
    5e-9, d within 5e-8), timed beside it, and fit_and_refine_grid on the
@@ -98,6 +118,7 @@ M_VALUES = tuple(range(120, 257, 4))
 REFINE_CLUSTERS, GN_ITERS, GATE_VOXELS = 16, 6, 8
 MAIN_KERNELS = ("eig_cs", "gram_svd", "cholqr_rinv", "chol_solve")
 GRID_SIDE, GRID_SHARD, GRID_DELETE = 256, 2048, 3
+BRAIN_N, BRAIN_DWELL, SPEC_GN_ITERS, SPEC_BATCH = 2048, 2.5e-4, 10, 2048
 BASE_LINES = np.array([
     [1.0, 0.05, -120.0, 0.1],
     [0.8, 0.08, -40.0, 0.0],
@@ -274,18 +295,18 @@ def contract_error(x: torch.Tensor, g: torch.Tensor, sh: torch.Tensor,
     return worst
 
 
-def production_gram_checks(c32: torch.Tensor, cfg) -> dict:
-    """cholqr_rinv and its plain version on the Gram matrices the V=2048
-    sweep hands the kernel.  They are numerically rank-deficient (five lines
-    in a 24-wide block), some pivots are of the size of the shift, and
-    another summation order changes them; so the two are not compared entry
-    by entry but each held to the contract R^-H (G + shift I) R^-1 = I in
-    float64, to 0.2 k eps / shift_rel (the bound of the rank-5 tests in
-    tests/test_torch_kernels.py), with finite outputs."""
+def production_gram_checks(c32: torch.Tensor, dwell: float, m_values, kcfg,
+                           source: str) -> dict:
+    """cholqr_rinv and its plain version on the Gram matrices a sweep of
+    the signals ``c32`` hands the kernel.  They are numerically
+    rank-deficient (a few lines in a k-wide block), some pivots are of the
+    size of the shift, and another summation order changes them; so the two
+    are not compared entry by entry but each held to the contract R^-H (G +
+    shift I) R^-1 = I in float64, to 0.2 k eps / shift_rel (the bound of the
+    rank-5 tests in tests/test_torch_kernels.py), with finite outputs."""
     from llckbdm_tpu_torch import kbdm_sweep
     from llckbdm_tpu_torch.ops import cuda_linalg
 
-    kcfg = cfg.kbdm
     k = kcfg.p + kcfg.oversample
     cases = (
         ("power iteration 2", 1e-4, "powiter",
@@ -296,7 +317,7 @@ def production_gram_checks(c32: torch.Tensor, cfg) -> dict:
     )
     out = {}
     for label, shift_rel, stop, case_cfg in cases:
-        y = kbdm_sweep(c32, DWELL, cfg.m_values, case_cfg, _stop=stop)
+        y = kbdm_sweep(c32, dwell, m_values, case_cfg, _stop=stop)
         g = torch.einsum("vmsk,vmsl->vskl", y.conj(), y)
         del y
         g = (0.5 * (g + g.transpose(-1, -2).conj())).reshape(-1, k, k)
@@ -310,12 +331,12 @@ def production_gram_checks(c32: torch.Tensor, cfg) -> dict:
                   f"cholqr_rinv {name}: non-finite R^-1 on the production "
                   f"Grams of {label}")
             errs[name] = contract_error(x, g, sh)
-        print(f"cholqr_rinv on production Grams, {label} {tuple(g.shape)}, "
+        print(f"cholqr_rinv on {source}'s Grams, {label} {tuple(g.shape)}, "
               f"shift {shift_rel:g} x mean diagonal: |R^-H (G + shift I) "
               f"R^-1 - I| kernel {errs['kernel']:.3e}, plain "
               f"{errs['plain']:.3e} (< {bound:.3e}); all finite", flush=True)
         check(max(errs.values()) < bound,
-              f"cholqr_rinv misses its contract on the production Grams of "
+              f"cholqr_rinv misses its contract on {source}'s Grams of "
               f"{label}: {errs}")
         out[label] = dict(shift_rel=shift_rel, bound=bound, **errs)
         del g, x
@@ -479,19 +500,358 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     return out
 
 
-def tool_path(name: str, drive) -> tuple[int, object]:
-    """Drive one tool's path with the launch counts set to 0 just before and
-    read just after; returns the kernel's launch count and what drive gave."""
+def spec_kernel_checks(oracle) -> dict:
+    """Each main-path kernel at the widths of configs 2 and 3 (p=24, k=32),
+    against its plain version and timed beside its bound and library call,
+    at a batch of SPEC_BATCH: a shard of config-2 voxels (one sweep entry
+    each).  eig_cs takes config 3's reduced matrices of the brain signal
+    (46 a voxel, repeated to the batch); gram_svd, cholqr_rinv and
+    chol_solve take the generators of kernel_checks.  chol_solve at 24
+    (the amplitude solve, in the 32-wide kernel), 48 (the GN solve of 24
+    lines, in the 64-wide) and 64 (32 refined clusters)."""
+    from llckbdm_tpu_torch import KbdmConfig, kbdm_sweep
+    from llckbdm_tpu_torch.ops import cuda_jacobi, cuda_linalg
+    from llckbdm_tpu_torch.tools import bounds
+
+    kcfg = KbdmConfig(p=24)
+    p, k, b = kcfg.p, kcfg.p + kcfg.oversample, SPEC_BATCH
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    sig, _ = brain_signal(oracle)
+    ut = kbdm_sweep(torch.as_tensor(sig[None], device=DEVICE)
+                    .to(torch.complex64), BRAIN_DWELL, tuple(range(120, 301, 4)),
+                    kcfg, _stop="reduced").reshape(-1, p, p)
+    ut = ut.repeat(-(-b // ut.shape[0]), 1, 1)[:b].contiguous()
+    out = {}
+
+    mu_k, res_k = cuda_jacobi.eig_cs_resid(ut, kcfg.eig_sweeps)
+    mu_p, res_p = cuda_jacobi.eig_cs_resid_plain(ut, kcfg.eig_sweeps)
+    # where both versions converged (counter below 1e-3 |A|_F), matched
+    # eigenvalues within 3e-3 |A|_F, as in tests/test_torch_cuda.py
+    fro = torch.sqrt(torch.sum(ut.abs() ** 2, dim=(-1, -2)))
+    err = matched_eig_err(mu_k, mu_p)
+    both = (res_k / fro < 1e-3) & (res_p / fro < 1e-3)
+    rel = (err / fro)[both]
+    print(f"eig_cs {tuple(ut.shape)} (config 3's reduced matrices): both "
+          f"converged on {both.float().mean().item():.4f}; there matched "
+          f"|dmu|/|A|_F max {rel.max().item():.3e}; resid/|A|_F max kernel "
+          f"{(res_k / fro).max().item():.3e} plain "
+          f"{(res_p / fro).max().item():.3e}", flush=True)
+    check(both.float().mean().item() >= 0.9 and rel.max().item() < 3e-3,
+          f"eig_cs n={p} disagrees")
+    out["eig_cs"] = dict(
+        shape=list(ut.shape), max_abs_err=err[both].max().item(),
+        **timed(f"eig_cs {tuple(ut.shape)}",
+                lambda: cuda_jacobi.eig_cs_resid(ut, kcfg.eig_sweeps),
+                lambda: cuda_jacobi.eig_cs_resid_plain(ut, kcfg.eig_sweeps),
+                bounds.eig_cs(b, p, kcfg.eig_sweeps), yardstick("eig_cs", ut)))
+
+    m = crandn(gen, b, k, k)
+    s_k, _ = cuda_linalg.gram_svd(m, kcfg.eigh_sweeps)
+    s_p, _ = cuda_linalg.gram_svd_plain(m, kcfg.eigh_sweeps)
+    check(rel_err(s_k, s_p) < 1e-5, f"gram_svd k={k} disagrees")
+    out["gram_svd"] = dict(
+        shape=[b, k, k], max_abs_err=(s_k - s_p).abs().max().item(),
+        **timed(f"gram_svd ({b}, {k}, {k})",
+                lambda: cuda_linalg.gram_svd(m, kcfg.eigh_sweeps),
+                lambda: cuda_linalg.gram_svd_plain(m, kcfg.eigh_sweeps),
+                bounds.gram_svd(b, k, kcfg.eigh_sweeps),
+                yardstick("gram_svd", m)))
+
+    g = gram(gen, b, k)
+    sh = 3e-6 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
+    x_k = cuda_linalg.cholqr_rinv(g, sh)
+    x_p = cuda_linalg.cholqr_rinv_plain(g, sh)
+    check(rel_err(x_k, x_p) < 1e-5, f"cholqr_rinv k={k} disagrees")
+    out["cholqr_rinv"] = dict(
+        shape=[b, k, k], max_abs_err=(x_k - x_p).abs().max().item(),
+        **timed(f"cholqr_rinv ({b}, {k}, {k})",
+                lambda: cuda_linalg.cholqr_rinv(g, sh),
+                lambda: cuda_linalg.cholqr_rinv_plain(g, sh),
+                bounds.cholqr_rinv(b, k),
+                (None, "no single call gives R^-1 of the shifted Cholesky "
+                       "factor: cholesky and then a triangular inverse are "
+                       "two")))
+
+    out["chol_solve"] = []
+    for kk in (p, 2 * p, cuda_linalg.MAX_K_SOLVE):
+        g = gram(gen, b, kk)
+        rhs = crandn(gen, b, kk)
+        sh = 1e-7 * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
+        x_k = cuda_linalg.chol_solve(g, rhs, sh)
+        x_p = cuda_linalg.chol_solve_plain(g, rhs, sh)
+        check(rel_err(x_k, x_p) < 1e-5, f"chol_solve k={kk} disagrees")
+        g_shifted = g + sh[:, None, None] * torch.eye(kk, dtype=g.dtype,
+                                                      device=DEVICE)
+        out["chol_solve"].append(dict(
+            shape=[b, kk, kk], max_abs_err=(x_k - x_p).abs().max().item(),
+            **timed(f"chol_solve ({b}, {kk}, {kk})",
+                    lambda: cuda_linalg.chol_solve(g, rhs, sh),
+                    lambda: cuda_linalg.chol_solve_plain(g, rhs, sh),
+                    bounds.chol_solve(b, kk),
+                    yardstick("chol_solve", g_shifted, rhs))))
+    return out
+
+
+def counted_path(label: str, drive, kernels=MAIN_KERNELS) -> tuple:
+    """Drive one path with the launch counts set to 0 just before and read
+    just after: every kernel of ``kernels`` must have been launched and no
+    plain version handed a CUDA tensor.  Returns (launches, what drive
+    gave)."""
     from llckbdm_tpu_torch.ops import _build
 
     _build.reset_counts()
     result = drive()
-    launches, plain = _build.LAUNCHES[name], dict(_build.PLAIN_ON_CUDA)
-    print(f"{name}: its tool's path launched it {launches} times; plain on "
-          f"CUDA {plain}", flush=True)
-    check(launches > 0, f"{name} was not launched by its tool's path")
+    torch.cuda.synchronize()
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_ON_CUDA)
+    print(f"{label}: launches {launches}; plain on CUDA {plain}", flush=True)
+    for name in kernels:
+        check(launches.get(name, 0) > 0, f"{name} was not launched by {label}")
     check(not any(plain.values()), f"a plain version ran on CUDA: {plain}")
     return launches, result
+
+
+def tool_path(name: str, drive) -> tuple[int, object]:
+    """Drive one tool's path with the launch counts set to 0 just before and
+    read just after; returns the kernel's launch count and what drive gave."""
+    launches, result = counted_path(f"{name}'s tool path", drive, (name,))
+    return launches[name], result
+
+
+def brain_signal(oracle) -> tuple:
+    """Config 2's signal: the 16 metabolite lines of
+    data/params_brain_sim.csv, N=2048, noiseless, from the port's oracle."""
+    truth = np.loadtxt(ROOT / "data" / "params_brain_sim.csv", delimiter=",",
+                       skiprows=1, usecols=(1, 2, 3, 4))
+    return oracle.sample_signal(truth, BRAIN_N, BRAIN_DWELL), truth
+
+
+def first_voxel(ref):
+    return ref._replace(z=ref.z[0], d=ref.d[0], mask=ref.mask[0])
+
+
+def jacobi_counter(c32, dwell, m_values, kcfg) -> float:
+    """The largest relative off-diagonal norm eig_cs leaves on the sweep's
+    reduced matrices (the convergence counter)."""
+    from llckbdm_tpu_torch import kbdm_sweep
+
+    _, diag = kbdm_sweep(c32, dwell, m_values, kcfg, with_diag=True)
+    return diag["eig_offdiag_rel"].max().item()
+
+
+def spec_phases(oracle) -> dict:
+    """The JAX package's spec-scale and chip gates, each a path driven once
+    with the launch counts set to 0 before and read after (every main-path
+    kernel launched, no plain version on a CUDA tensor), each gate
+    asserted."""
+    from llckbdm_tpu_torch import (KbdmConfig, LineList, LlcKbdmConfig,
+                                   RefineConfig, kbdm_fit, line_list_to_np,
+                                   llc_kbdm, llc_kbdm_fit, refine_lines,
+                                   refined_to_np)
+
+    out = {}
+    sig, truth = brain_signal(oracle)
+    c64 = torch.as_tensor(sig[None], device=DEVICE)
+    c32 = c64.to(torch.complex64)
+    kcfg = KbdmConfig(p=24)
+
+    # config 2: one fit at m=512 (k=32), 10 GN iterations (24 lines: 48 x 48
+    # solves in the 64-wide kernel); tests/test_spec_scale.py:26-48
+    def config2():
+        lines = kbdm_fit(c32, BRAIN_DWELL, 512, kcfg)
+        return lines, refine_lines(c64, lines, BRAIN_DWELL,
+                                   RefineConfig(iters=SPEC_GN_ITERS))
+    launches, (lines, ref) = counted_path("config 2", config2)
+    n32 = len(line_list_to_np(LineList(*(x[0] for x in lines))))
+    check(n32 >= len(truth), f"config 2: the f32 stage found {n32} lines")
+    olines, _ = oracle.kbdm(sig, BRAIN_DWELL, m=512, p=24)
+    olines = olines[oracle.match_lines(olines, truth)]
+    est = refined_to_np(first_voxel(ref), BRAIN_DWELL)
+    gate = oracle.line_errors(est[oracle.match_lines(est, truth)],
+                              olines).max()
+    counter = jacobi_counter(c32, BRAIN_DWELL, (512,), kcfg)
+    print(f"config 2 (brain, N={BRAIN_N}, m=512, p=24): {n32} f32 lines; "
+          f"refined vs oracle.kbdm max err {gate:.3e} (< 1e-8); Jacobi "
+          f"off-diagonal at p=24 {counter:.3e}", flush=True)
+    check(gate < 1e-8, f"config 2 missed the 1e-8 gate: {gate:.3e}")
+    out["config2"] = dict(launches=launches, f32_lines=n32, gate=gate,
+                          jacobi_offdiag_rel=counter)
+    # the first brain Grams under the power iterations' and final passes'
+    # shifts, kernel beside plain version
+    out["config2"]["production_grams"] = production_gram_checks(
+        c32, BRAIN_DWELL, (512,), kcfg, "config 2")
+
+    # config 3: the 46-entry sweep, all 32 slots refined (64 x 64 solves);
+    # tests/test_spec_scale.py:52-75
+    cfg3 = LlcKbdmConfig(m_values=tuple(range(120, 301, 4)), eps=2e-4,
+                         min_samples=10, max_clusters=32, kbdm=kcfg)
+
+    def config3():
+        cons, _, counts, _ = llc_kbdm_fit(c32, BRAIN_DWELL, cfg3)
+        return counts, refine_lines(c64, cons, BRAIN_DWELL,
+                                    RefineConfig(iters=SPEC_GN_ITERS))
+    launches, (counts, ref) = counted_path("config 3", config3)
+    est = refined_to_np(first_voxel(ref), BRAIN_DWELL)
+    est = est[np.abs(est[:, 0]) > 0.1]                 # drop empty slots
+    check(len(est) >= len(truth), f"config 3 refined {len(est)} lines")
+    gate = oracle.line_errors(est[oracle.match_lines(est, truth)],
+                              truth).max()
+    counter = jacobi_counter(c32, BRAIN_DWELL, cfg3.m_values, kcfg)
+    print(f"config 3 (brain, m=120..300 step 4, min_samples 10, p=24): "
+          f"{int((counts > 0).sum())} clusters; refined vs truth max err "
+          f"{gate:.3e} (< 1e-8); Jacobi off-diagonal at p=24 {counter:.3e}",
+          flush=True)
+    check(gate < 1e-8, f"config 3 missed the 1e-8 gate: {gate:.3e}")
+    out["config3"] = dict(launches=launches, gate=gate,
+                          clusters=int((counts > 0).sum()),
+                          jacobi_offdiag_rel=counter)
+    out["config3"]["production_grams"] = production_gram_checks(
+        c32, BRAIN_DWELL, cfg3.m_values, kcfg, "config 3")
+
+    # config 1 noiseless, 3 GN iterations: the gate that pinned the solver's
+    # defaults (tests/test_tpu.py:31-48)
+    sig1 = oracle.sample_signal(BASE_LINES, N, DWELL)
+    c1 = torch.as_tensor(sig1[None], device=DEVICE)
+
+    def config1():
+        lines = kbdm_fit(c1.to(torch.complex64), DWELL, 180, KbdmConfig(p=16))
+        return refine_lines(c1, lines, DWELL, RefineConfig(iters=3))
+    launches, ref = counted_path("config 1, 3 GN iterations", config1)
+    olines, _ = oracle.kbdm(sig1, DWELL, m=180, p=16)
+    olines = olines[oracle.match_lines(olines, BASE_LINES)]
+    est = refined_to_np(first_voxel(ref), DWELL)
+    gate = oracle.line_errors(est[oracle.match_lines(est, BASE_LINES)],
+                              olines).max()
+    print(f"config 1 noiseless, m=180, p=16, 3 GN iterations: vs "
+          f"oracle.kbdm max err {gate:.3e} (< 1e-8)", flush=True)
+    check(gate < 1e-8, f"config 1 (3 iterations) missed the gate: {gate:.3e}")
+    out["config1_iters3"] = dict(launches=launches, gate=gate)
+
+    # the NumPy entry point with its refinement (tests/test_tpu.py:102-112)
+    def wrapper():
+        return llc_kbdm(sig1, DWELL, range(120, 181, 10), p=16, eps=2e-4,
+                        min_samples=5, refine_iters=6, device=DEVICE)
+    launches, (cons, pooled, _) = counted_path("llc_kbdm", wrapper)
+    check(len(cons) >= 5 and len(pooled) > len(cons),
+          f"llc_kbdm: {len(cons)} lines of {len(pooled)} pooled")
+    gate = oracle.line_errors(cons[oracle.match_lines(cons, BASE_LINES)],
+                              BASE_LINES).max()
+    print(f"llc_kbdm (m=120..180 step 10, min_samples 5, refine_iters 6): "
+          f"{len(cons)} lines vs truth max err {gate:.3e} (< 1e-8)",
+          flush=True)
+    check(gate < 1e-8, f"llc_kbdm missed the 1e-8 gate: {gate:.3e}")
+    out["llc_kbdm"] = dict(launches=launches, gate=gate)
+    return out
+
+
+def damping_phase(oracle, sigs, truths, c32, c64, cfg, rcfg) -> dict:
+    """The north star with damping_weight=1.0 (the O(n^2) dbscan on the 2-D
+    features), top 16 clusters refined: every voxel keeps >= 5 lines and
+    the 8 voxels with the largest last GN step meet the 1e-8 oracle gate."""
+    from llckbdm_tpu_torch import (LineList, line_list_to_np, llc_kbdm_fit,
+                                   refine_lines, refined_to_np)
+
+    dcfg = dataclasses.replace(cfg, damping_weight=1.0)
+
+    def drive():
+        cons, _, counts, _ = llc_kbdm_fit(c32, DWELL, dcfg)
+        torch.cuda.synchronize()
+        t_mid = time.perf_counter()
+        top = LineList(*(x[..., :REFINE_CLUSTERS] for x in cons))
+        return top, counts, refine_lines(c64, top, DWELL, rcfg), t_mid
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches, (top, counts, refined, t_mid) = counted_path(
+        "north star, damping_weight=1.0", drive)
+    t_fit, t_refine = t_mid - t0, time.perf_counter() - t_mid
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    live = refined.mask > 0.5
+    n_lines = live.sum(-1)
+    check(bool(torch.isfinite(refined.z[live]).all()),
+          "damping: non-finite refined lines")
+    check(bool((n_lines >= 5).all()), "damping: a voxel lost a genuine line")
+    gn = refined.gn_step.cpu().numpy()
+    voxels = largest_step_voxels(gn)
+    gate = max(gate_errors(
+        oracle, voxels, sigs, truths,
+        lambda i: line_list_to_np(LineList(*(x[i] for x in top))),
+        lambda i: refined_to_np(refined._replace(
+            z=refined.z[i], d=refined.d[i], mask=refined.mask[i]), DWELL)))
+    print(f"north star V={VOXELS}, damping_weight=1.0: fit {t_fit * 1e3:.1f} "
+          f"ms, refine {t_refine * 1e3:.1f} ms; peak {peak_gb:.2f} GiB; "
+          f"refined lines per voxel min {n_lines.min().item()} max "
+          f"{n_lines.max().item()}; oracle gate {gate:.3e} (< 1e-8) on "
+          f"voxels {voxels}", flush=True)
+    check(gate < 1e-8, f"damping missed the 1e-8 oracle gate: {gate:.3e}")
+    return {"launches": launches, "fit_ms": t_fit * 1e3,
+            "refine_ms": t_refine * 1e3, "peak_gib": peak_gb, "gate": gate,
+            "counts": counts}
+
+
+def eps_tie_pairs(x: torch.Tensor, ok: torch.Tensor, eps: float) -> int:
+    """Pairs of valid 1-D points on which dbscan's neighbour rule (the
+    squared difference against float32(eps)^2) and one of dbscan_1d's (x_j
+    against the rounded x_i +- eps, or |x_i - x_j| against eps) disagree:
+    the distances that round to exactly eps."""
+    e = float(torch.tensor(eps, dtype=torch.float32))
+    e2 = float(torch.tensor(eps, dtype=torch.float32) ** 2)
+    pair = ok[:, None] & ok[None, :]
+    dx = x[:, None] - x[None, :]
+    rule_2d = dx * dx <= e2
+    rule_range = (x[None, :] <= x[:, None] + e) & (x[None, :] >= x[:, None] - e)
+    rule_abs = dx.abs() <= e
+    return int((((rule_2d != rule_range) | (rule_2d != rule_abs))
+                & pair).sum())
+
+
+def dbscan_phase(pooled, cfg) -> dict:
+    """The O(n^2) dbscan against dbscan_1d on the main path's pooled lines
+    (damping_weight=0): equal labels on every voxel, or the voxels that
+    differ printed with the pairs on which the two neighbour rules disagree
+    (exact eps ties after rounding); each timed at V=2048 by the host clock
+    around torch.cuda.synchronize() (median of 3 after a warm-up), with its
+    peak device memory above what was allocated before it."""
+    from llckbdm_tpu_torch.ops import dbscan as db
+    from llckbdm_tpu_torch.pipeline.llckbdm import transform_line_lists
+
+    feats = transform_line_lists(pooled, DWELL, 0.0)
+    valid = pooled.mask > 0.5
+    runs = {"dbscan": lambda: db.dbscan(feats, valid, cfg.eps,
+                                        cfg.min_samples),
+            "dbscan_1d": lambda: db.dbscan_1d(feats[..., 0], valid, cfg.eps,
+                                              cfg.min_samples)}
+    out, labels = {}, {}
+    for name, fn in runs.items():
+        fn()
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            labels[name] = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        out[name] = {"ms": float(np.median(ms)), "runs_ms": ms,
+                     "peak_gib": peak}
+    diff = (labels["dbscan"].long() != labels["dbscan_1d"]).any(-1)
+    bad = diff.nonzero().flatten().tolist()
+    ties = {}
+    for v in bad:
+        ties[v] = eps_tie_pairs(feats[v, :, 0], valid[v], cfg.eps)
+        print(f"dbscan: voxel {v} differs from dbscan_1d; {ties[v]} point "
+              f"pairs on which the two neighbour rules disagree", flush=True)
+        check(ties[v] > 0, f"dbscan and dbscan_1d differ on voxel {v} "
+              f"without an eps tie")
+    print(f"dbscan vs dbscan_1d on the pooled lines ({tuple(feats.shape)}): "
+          f"labels equal on {VOXELS - len(bad)} of {VOXELS} voxels; dbscan "
+          f"{out['dbscan']['ms']:.2f} ms (peak +{out['dbscan']['peak_gib']:.2f}"
+          f" GiB), dbscan_1d {out['dbscan_1d']['ms']:.2f} ms (peak "
+          f"+{out['dbscan_1d']['peak_gib']:.2f} GiB)", flush=True)
+    out.update(voxels_differing=bad, tie_pairs=ties)
+    return out
 
 
 def probe_checks() -> dict:
@@ -948,7 +1308,8 @@ def main() -> int:
                         _stop="reduced")
     results = kernel_checks(ut, ut_odd, cfg.kbdm)
     del ut, ut_odd
-    results["cholqr_rinv"]["production_grams"] = production_gram_checks(c32, cfg)
+    results["cholqr_rinv"]["production_grams"] = production_gram_checks(
+        c32, DWELL, cfg.m_values, cfg.kbdm, "the north star")
 
     # --- the main path ----------------------------------------------------
     def top(lines):
@@ -960,13 +1321,13 @@ def main() -> int:
         t_mid = time.perf_counter()
         refined = refine_lines(c64, top(cons), DWELL, rcfg)
         torch.cuda.synchronize()
-        return cons, counts, refined, t_mid
+        return cons, pooled, counts, refined, t_mid
 
     main_path()                                   # warm-up (cuBLAS, allocator)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
     t0 = time.perf_counter()
-    cons, counts, refined, t_mid = main_path()
+    cons, pooled, counts, refined, t_mid = main_path()
     t_end = time.perf_counter()
     launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_ON_CUDA)
     t_fit, t_refine = t_mid - t0, t_end - t_mid
@@ -996,9 +1357,7 @@ def main() -> int:
           f"{counts[0].tolist()}")
 
     # --- gates ------------------------------------------------------------
-    _, diag = kbdm_sweep(c32[:32], DWELL, cfg.m_values, cfg.kbdm,
-                         with_diag=True)
-    offdiag = diag["eig_offdiag_rel"].max().item()
+    offdiag = jacobi_counter(c32[:32], DWELL, cfg.m_values, cfg.kbdm)
     print(f"Jacobi off-diagonal on production matrices (32 voxels): "
           f"{offdiag:.3e} (< 1e-2)")
     check(offdiag < 1e-2, f"Jacobi did not converge: {offdiag:.3e}")
@@ -1028,6 +1387,21 @@ def main() -> int:
           f" ms a launch in the profiled run (event windows, which include "
           f"the host's launch rate: {results['chol_solve']['ms_gn']:.4f} ms; "
           f"bound {results['chol_solve']['bound_ms_gn']:.4f} ms)", flush=True)
+
+    # --- the spec-scale gates, damping_weight != 0, the 2-D dbscan --------
+    spec = spec_phases(oracle)
+    damp = damping_phase(oracle, sigs, truths, c32, c64, cfg, rcfg)
+    same = (damp.pop("counts") == counts).all(-1).sum().item()
+    print(f"damping_weight=1.0: cluster counts equal to the main path's "
+          f"(damping_weight=0) on {same} of {VOXELS} voxels", flush=True)
+    damp["voxels_with_main_path_counts"] = same
+    spec["damping"] = damp
+    spec["dbscan"] = dbscan_phase(pooled, cfg)
+    del pooled
+    wide = spec_kernel_checks(oracle)
+    for name in MAIN_KERNELS:
+        results[name]["spec_shapes"] = (wide[name] if name == "chol_solve"
+                                        else [wide[name]])
 
     # --- the tool kernels -------------------------------------------------
     results.update(probe_checks())
@@ -1075,7 +1449,8 @@ def main() -> int:
     print(json.dumps({"voxels": VOXELS, "fit_ms": t_fit * 1e3,
                       "refine_ms": t_refine * 1e3, "peak_gib": peak_gb,
                       "jacobi_offdiag_rel": offdiag, "gate_max_err": gate,
-                      "profile": prof, "grid": grid, "two_ranks": two}))
+                      "profile": prof, "spec": spec, "grid": grid,
+                      "two_ranks": two}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

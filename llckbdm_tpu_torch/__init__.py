@@ -26,6 +26,7 @@ from .solver.refine import (RefineConfig, RefinedLines, refine_lines,
                             refined_to_np)
 from .pipeline.llckbdm import (ClusterStats, LlcKbdmConfig, llc_kbdm,
                                llc_kbdm_fit)
+from . import parallel
 
 __version__ = "0.1.0"
 
@@ -34,5 +35,6 @@ __all__ = [
     "KbdmConfig", "kbdm_fit", "kbdm_sweep",
     "ClusterStats", "LlcKbdmConfig", "llc_kbdm", "llc_kbdm_fit",
     "RefineConfig", "RefinedLines", "refine_lines", "refined_to_np",
+    "parallel",
     "__version__",
 ]

@@ -15,7 +15,9 @@ import torch.nn.functional as F
 
 from . import _build
 
-MAX_N = 32  # lane t owns column t: two matrices per warp up to n = 16, then one
+# The kernel's size limit (lane t owns column t: two matrices per warp up to
+# n = 16, then one); the plain version takes any n.
+MAX_N = 32
 
 
 def _rr_pair(r: int, k: int, n: int) -> tuple[int, int]:
@@ -30,13 +32,9 @@ def _prepare(a: torch.Tensor) -> torch.Tensor:
     """(..., n, n) complex64 -> (B, n_even, n_even), odd n zero-padded."""
     if a.dtype != torch.complex64:
         raise TypeError(f"eig_cs: need complex64, got {a.dtype}")
-    if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
+    if a.ndim < 2 or a.shape[-1] != a.shape[-2] or a.shape[-1] < 1:
         raise ValueError(f"eig_cs: need (..., n, n), got {tuple(a.shape)}")
     n = a.shape[-1]
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"eig_cs: n={n} outside [1, {MAX_N}]")
-    if a.numel() // (n * n) >= 2 ** 31:
-        raise ValueError("eig_cs: batch too large for one launch")
     flat = a.reshape(-1, n, n)
     if n % 2:
         flat = F.pad(flat, (0, 1, 0, 1))
@@ -65,12 +63,19 @@ def _launch(flat: torch.Tensor, sweeps: int):
 def eig_cs_resid(a: torch.Tensor, sweeps: int = 10):
     """Eigenvalues of complex-symmetric a = a^T (NOT Hermitian), batched.
 
-    a : (..., n, n) complex64, n <= 32.  Returns (mu, resid): mu (..., n)
-    complex64 eigenvalues (unordered) and resid (...,) float32, the final
-    off-diagonal Frobenius norm of each matrix (the convergence counter).
+    a : (..., n, n) complex64 (the kernel takes n <= 32).  Returns (mu,
+    resid): mu (..., n) complex64 eigenvalues (unordered) and resid (...,)
+    float32, the final off-diagonal Frobenius norm of each matrix (the
+    convergence counter).
     """
     flat = _prepare(a)
     if _build.use_kernel("eig_cs", flat):
+        n = a.shape[-1]
+        if n > MAX_N:
+            raise ValueError(f"eig_cs: the CUDA kernel takes n <= {MAX_N}, "
+                             f"got n={n}; lower KbdmConfig.p")
+        if flat.shape[0] >= 2 ** 31:
+            raise ValueError("eig_cs: batch too large for one launch")
         mu, resid = _launch(flat, sweeps)
     else:
         mu, resid = _eig_cs_flat(flat, sweeps)

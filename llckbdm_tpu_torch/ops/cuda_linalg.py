@@ -23,21 +23,37 @@ import torch.nn.functional as F
 from . import _build
 from .cuda_jacobi import _rr_pair
 
+# The kernels' size limits; the plain versions take any size.
 MAX_K = 32        # gram_svd, cholqr_rinv: one lane (or two per pair) per column
-MAX_K_SOLVE = 64  # chol_solve: one lane per column, two warps at k > 32
+MAX_K_SOLVE = 64  # chol_solve: two columns a lane, four warps at k > 32
+# What a caller lowers to stay inside a kernel's limit.
+_FIELD = {"gram_svd": "KbdmConfig.p + oversample",
+          "cholqr_rinv": "KbdmConfig.p + oversample",
+          "chol_solve": "the number of refined clusters C (2C <= 64), or "
+                        "KbdmConfig.p"}
 
 
-def _check_square(name: str, g: torch.Tensor, max_k: int = MAX_K) -> int:
+def _check_square(name: str, g: torch.Tensor) -> int:
+    """The dtype and shape every version needs; returns k."""
     if g.dtype != torch.complex64:
         raise TypeError(f"{name}: need complex64, got {g.dtype}")
-    if g.ndim < 2 or g.shape[-1] != g.shape[-2]:
+    if g.ndim < 2 or g.shape[-1] != g.shape[-2] or g.shape[-1] < 1:
         raise ValueError(f"{name}: need (..., k, k), got {tuple(g.shape)}")
-    k = g.shape[-1]
-    if not 1 <= k <= max_k:
-        raise ValueError(f"{name}: k={k} outside [1, {max_k}]")
-    if g.numel() // (k * k) >= 2 ** 31:
+    return g.shape[-1]
+
+
+def _launchable(name: str, flat: torch.Tensor, k: int, max_k: int) -> bool:
+    """True where ``flat`` goes to the kernel (a CUDA tensor), after checking
+    that the kernel takes its size; a CPU tensor takes the plain version at
+    any size."""
+    if not _build.use_kernel(name, flat):
+        return False
+    if k > max_k:
+        raise ValueError(f"{name}: the CUDA kernel takes k <= {max_k}, got "
+                         f"k={k}; lower {_FIELD[name]}")
+    if flat.shape[0] >= 2 ** 31:
         raise ValueError(f"{name}: batch too large for one launch")
-    return k
+    return True
 
 
 def _stream() -> int:
@@ -70,12 +86,12 @@ def _gram_svd_finish(m, sig, vt, kk):
 def gram_svd(m: torch.Tensor, sweeps: int = 10):
     """Eigendecomposition of m m^H via one-sided Jacobi on F = m^H.
 
-    m : (..., k, k) complex64, k <= 32.  Returns (s, v): singular values of
-    m (..., k) float32 sorted descending and unitary v (..., k, k) complex64
-    with m m^H ~= v diag(s^2) v^H.
+    m : (..., k, k) complex64 (the kernel takes k <= 32).  Returns (s, v):
+    singular values of m (..., k) float32 sorted descending and unitary v
+    (..., k, k) complex64 with m m^H ~= v diag(s^2) v^H.
     """
     flat, kk = _gram_svd_prepare(m)
-    if _build.use_kernel("gram_svd", flat):
+    if _launchable("gram_svd", flat, kk, MAX_K):
         batch, k = flat.shape[0], flat.shape[-1]
         sig = torch.empty((batch, k), dtype=torch.float32, device=flat.device)
         vt = torch.empty_like(flat)
@@ -188,14 +204,15 @@ def _chol_inplace(s: torch.Tensor, shift: torch.Tensor) -> None:
 def cholqr_rinv(g: torch.Tensor, shift) -> torch.Tensor:
     """R^{-1} (upper) with G + shift I = R^H R, batched.
 
-    g : (..., k, k) complex64 Hermitian PSD, k <= 32;  shift : (...,) per
-    matrix diagonal shift (absolute).  Returns (..., k, k) complex64
-    upper-triangular R^{-1}; Q = y R^{-1} orthonormalizes y when G = y^H y.
+    g : (..., k, k) complex64 Hermitian PSD (the kernel takes k <= 32);
+    shift : (...,) per matrix diagonal shift (absolute).  Returns (..., k,
+    k) complex64 upper-triangular R^{-1}; Q = y R^{-1} orthonormalizes y
+    when G = y^H y.
     """
     k = _check_square("cholqr_rinv", g)
     flat = g.reshape(-1, k, k).contiguous()
     sh = _shift_flat(shift, g)
-    if _build.use_kernel("cholqr_rinv", flat):
+    if _launchable("cholqr_rinv", flat, k, MAX_K):
         out = torch.empty_like(flat)
         lib = _build.library()
         with torch.cuda.device(flat.device):
@@ -234,17 +251,18 @@ def _cholqr_flat(g: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
 def chol_solve(g: torch.Tensor, b: torch.Tensor, shift) -> torch.Tensor:
     """Solve (G + shift I) x = b for Hermitian PSD G, batched.
 
-    g : (..., k, k) complex64, k <= 64;  b : (..., k) complex64;  shift :
-    (...,) absolute diagonal shift (Tikhonov).  Returns (..., k) complex64.
+    g : (..., k, k) complex64 (the kernel takes k <= 64);  b : (..., k)
+    complex64;  shift : (...,) absolute diagonal shift (Tikhonov).  Returns
+    (..., k) complex64.
     """
-    k = _check_square("chol_solve", g, MAX_K_SOLVE)
+    k = _check_square("chol_solve", g)
     if b.dtype != torch.complex64 or b.shape != g.shape[:-1]:
         raise ValueError(f"chol_solve: b must be complex64 {tuple(g.shape[:-1])}, "
                          f"got {b.dtype} {tuple(b.shape)}")
     flat = g.reshape(-1, k, k).contiguous()
     bf = b.reshape(-1, k).contiguous()
     sh = _shift_flat(shift, g)
-    if _build.use_kernel("chol_solve", flat):
+    if _launchable("chol_solve", flat, k, MAX_K_SOLVE):
         x = torch.empty_like(bf)
         lib = _build.library()
         with torch.cuda.device(flat.device):
@@ -260,7 +278,7 @@ def chol_solve(g: torch.Tensor, b: torch.Tensor, shift) -> torch.Tensor:
 
 def chol_solve_plain(g: torch.Tensor, b: torch.Tensor, shift) -> torch.Tensor:
     """The plain PyTorch version of the kernel, on any device."""
-    k = _check_square("chol_solve", g, MAX_K_SOLVE)
+    k = _check_square("chol_solve", g)
     flat = g.reshape(-1, k, k)
     _build.count_plain("chol_solve", flat)
     return _chol_solve_flat(flat, b.reshape(-1, k),

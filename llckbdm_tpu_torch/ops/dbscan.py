@@ -1,26 +1,97 @@
-"""Fixed-shape, exact-semantics DBSCAN over 1-D features, batched over voxels.
+"""Fixed-shape, exact-semantics DBSCAN, batched over voxels.
 
-Counterpart of ``dbscan_1d``, ``compact_labels`` and ``masked_median`` in
-llckbdm_tpu/ops/dbscan.py, written for a leading batch axis instead of vmap.
-Semantics (sklearn's DBSCAN with a deterministic border rule):
+Counterpart of ``dbscan``, ``dbscan_1d``, ``compact_labels`` and
+``masked_median`` in llckbdm_tpu/ops/dbscan.py, written for a leading batch
+axis instead of vmap.  Semantics (sklearn's DBSCAN with a deterministic
+border rule):
 
 * neighbor count = #valid points within eps (self included);
 * core           = valid & count >= min_samples;
-* clusters       = connected components of the core-core eps graph — in 1-D,
-                   maximal runs of cores with consecutive gaps <= eps;
+* clusters       = connected components of the core-core eps graph;
 * border         = non-core valid point within eps of >= 1 core; adopts the
                    minimum root label among its core neighbors;
 * labels         = root point index (the cluster's minimum original core
                    index), -1 for noise.  Invalid points are always -1.
 
-The O(n^2) ``dbscan`` of the JAX package (used only for a 2-D feature space,
-damping_weight != 0) is not ported yet.
+:func:`dbscan` takes any feature dimension (the pipeline's 2-D space when
+damping_weight != 0) at O(n^2) per voxel; :func:`dbscan_1d` takes the 1-D
+space (damping_weight == 0) by sort and range counting.  The two agree label
+for label except where a pair's distance rounds to exactly eps
+(llckbdm_tpu/ops/dbscan.py:94-101).  Plain PyTorch: the JAX package has no
+Pallas kernel here.
 """
 from __future__ import annotations
 
 import torch
 
 _BIG = 2 ** 30
+# dbscan's (chunk, n, n) temporaries hold at most this many elements each
+# (512 MiB in float32); its only whole-batch (B, n, n) tensor is boolean.
+_CHUNK_ELEMS = 2 ** 27
+
+
+def _neighbour_min(adj: torch.Tensor, lab: torch.Tensor,
+                   chunk: int) -> torch.Tensor:
+    """min over j of lab[b, j] where adj[b, i, j], else _BIG: (B, n)."""
+    out = torch.empty_like(lab)
+    for s in range(0, lab.shape[0], chunk):
+        a, l = adj[s:s + chunk], lab[s:s + chunk]
+        out[s:s + chunk] = torch.where(a, l[:, None, :], _BIG).amin(dim=-1)
+    return out
+
+
+def dbscan(feats: torch.Tensor, valid: torch.Tensor, eps: float,
+           min_samples: int, max_iters: int = 24) -> torch.Tensor:
+    """Exact DBSCAN by pairwise distances and min-label propagation.
+
+    feats : (B, n, d) float32;  valid : (B, n) bool.  Returns (B, n) int32
+    labels.  The arithmetic is the JAX function's, so the labels are its
+    labels: squared distances summed over the features (not the |a|^2 +
+    |b|^2 - 2ab expansion, which rounds otherwise at eps ties) against
+    float32(eps)^2; then rounds of "min over core neighbours, then follow
+    the label once more" (pointer jumping) until a round changes nothing or
+    ``max_iters`` rounds have run.  A round after the fixed point changes
+    nothing, so stopping when no voxel of the batch changed gives each
+    voxel its own JAX labels; one host sync a round.
+
+    Memory: the (B, n, n) adjacency in bool, and (chunk, n, n) temporaries
+    of at most ``_CHUNK_ELEMS`` elements (at n = 560, 428 voxels a chunk).
+    """
+    b, n = valid.shape
+    chunk = max(1, _CHUNK_ELEMS // max(1, n * n))
+    thr = float(torch.tensor(eps, dtype=torch.float32) ** 2)
+    adj = torch.empty((b, n, n), dtype=torch.bool, device=feats.device)
+    count = torch.empty((b, n), dtype=torch.int32, device=feats.device)
+    for s in range(0, b, chunk):
+        f, v = feats[s:s + chunk], valid[s:s + chunk]
+        d2 = torch.zeros((f.shape[0], n, n), dtype=feats.dtype,
+                         device=feats.device)
+        for j in range(f.shape[-1]):
+            x = f[..., j]
+            d2 += (x[:, :, None] - x[:, None, :]).square_()
+        a = (d2 <= thr) & v[:, :, None] & v[:, None, :]
+        del d2
+        adj[s:s + chunk] = a
+        # a whole-batch sum of the boolean adjacency would widen it to int64
+        count[s:s + chunk] = a.sum(dim=-1, dtype=torch.int32)
+    core = valid & (count >= min_samples)
+
+    idx = torch.arange(n, dtype=torch.int32, device=feats.device)
+    lab = torch.where(core, idx, _BIG)
+    # a non-core point's label is _BIG, so "min over adjacent cores" is the
+    # min over all neighbours
+    for _ in range(max_iters):
+        lab1 = torch.minimum(lab, _neighbour_min(adj, lab, chunk))
+        jump = torch.gather(lab1, -1, lab1.clamp(0, n - 1).long())
+        lab2 = torch.where(core, torch.minimum(lab1, jump), _BIG)
+        changed = bool((lab2 != lab).any())
+        lab = lab2
+        if not changed:
+            break
+
+    border = _neighbour_min(adj, lab, chunk)
+    is_border = valid & ~core & (border < _BIG)
+    return torch.where(core, lab, torch.where(is_border, border, -1))
 
 
 def dbscan_1d(x: torch.Tensor, valid: torch.Tensor, eps: float,
@@ -80,10 +151,11 @@ def dbscan_1d(x: torch.Tensor, valid: torch.Tensor, eps: float,
 def compact_labels(labels: torch.Tensor, max_clusters: int):
     """Map root-index labels to compact ids [0, C) by descending cluster size.
 
-    labels : (B, n) int from :func:`dbscan_1d` (-1 = noise).
-    Returns (membership (B, n, C) float32 one-hot, counts (B, C) int64).
-    Clusters are ordered by (descending size, ascending root index).
+    labels : (B, n) int from :func:`dbscan` or :func:`dbscan_1d` (-1 =
+    noise).  Returns (membership (B, n, C) float32 one-hot, counts (B, C)
+    int64).  Clusters are ordered by (descending size, ascending root index).
     """
+    labels = labels.to(torch.int64)
     n = labels.shape[-1]
     clustered = labels >= 0
     root_counts = torch.zeros_like(labels).scatter_add_(

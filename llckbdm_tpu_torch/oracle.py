@@ -1,10 +1,13 @@
 """Float64 oracle for the port's own checks: numpy and scipy only.
 
-The port's copy of the four functions of ``llckbdm_tpu/oracle/reference.py``
-that its checks use (``sample_signal``, ``refine``, ``line_errors``,
-``match_lines``), so that nothing of the JAX package is loaded where the port
-runs.  The formulas are the reference's, line for line;
-``tests/test_torch_oracle.py`` holds the two against each other.
+The port's copy of the functions of ``llckbdm_tpu/oracle/reference.py``
+(``sample_signal``, ``kbdm``, ``transform_line_lists``, ``llc_kbdm``,
+``refine``, ``line_errors``, ``match_lines``), so that nothing of the JAX
+package is loaded where the port runs.  The formulas are the reference's,
+line for line; ``tests/test_torch_oracle.py`` holds the two against each
+other.  The reference's ``llc_kbdm`` clusters with scikit-learn's DBSCAN,
+which the GPU machine lacks: :func:`dbscan` here is a numpy DBSCAN that
+gives sklearn's labels.
 
 Line-list convention: a line is (A, T2, f, phase), and
 
@@ -13,6 +16,7 @@ Line-list convention: a line is (A, T2, f, phase), and
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg
 from scipy.optimize import linear_sum_assignment
 
 
@@ -24,6 +28,151 @@ def sample_signal(params: np.ndarray, n: int, dwell: float) -> np.ndarray:
     t = np.arange(n, dtype=np.float64) * dwell
     z = (2j * np.pi * f[:, None] - 1.0 / t2[:, None]) * t[None, :]
     return np.sum(a[:, None] * np.exp(1j * ph[:, None]) * np.exp(z), axis=0)
+
+
+def kbdm(data: np.ndarray, dwell: float, m: int | None = None,
+         p: int | None = None, *, filter_t2_min: float = 0.0,
+         amp_min: float = 0.0, return_all: bool = False):
+    """Single KBDM fit: Hankel U0/U1, truncated SVD of U0, the reduced p x p
+    eigenproblem, poles, Vandermonde least-squares amplitudes.
+
+    data : complex signal, N >= 2 m;  m : Hankel size (default N // 2);
+    p : truncation rank (default m).  Returns (lines, info): (k, 4) rows of
+    (A, T2, f, phase) sorted by frequency, kept where T2 > filter_t2_min,
+    A >= amp_min and T2 is finite (unless return_all), and a dict of the
+    singular values, the poles, m and p.
+    """
+    c = np.asarray(data, dtype=np.complex128)
+    n = c.shape[0]
+    if m is None:
+        m = n // 2
+    if n < 2 * m:
+        raise ValueError(f"need len(data) >= 2*m, got N={n}, m={m}")
+    if p is None:
+        p = m
+    p = min(p, m)
+
+    idx = np.arange(m)[:, None] + np.arange(m)[None, :]
+    u0 = c[idx]
+    u1 = c[idx + 1]
+
+    ll, s, rh = scipy.linalg.svd(u0)
+    lp = ll[:, :p]
+    sp = s[:p]
+    rp = rh[:p, :].conj().T
+
+    # U~ = S^-1/2 L^H U1 R S^-1/2
+    s_isqrt = 1.0 / np.sqrt(sp)
+    ut = (s_isqrt[:, None] * (lp.conj().T @ u1 @ rp)) * s_isqrt[None, :]
+    mu, _ = scipy.linalg.eig(ut)
+
+    freq = np.angle(mu) / (2.0 * np.pi * dwell)
+    with np.errstate(divide="ignore"):
+        t2 = -dwell / np.log(np.abs(mu))
+
+    # |mu| <= exp(30/N) keeps |mu^n| <= e^30; clamped poles keep T2 < 0 and
+    # the T2 filter drops them
+    mu_mag = np.abs(mu)
+    mu_max = np.exp(30.0 / n)
+    mu_cl = np.where(mu_mag > mu_max, mu * (mu_max / mu_mag), mu)
+    v = mu_cl[None, :] ** np.arange(n)[:, None]
+    d, *_ = scipy.linalg.lstsq(v, c, lapack_driver="gelsd")
+    amp = np.abs(d)
+    phase = np.angle(d)
+
+    lines = np.stack([amp, t2, freq, phase], axis=1)
+    if not return_all:
+        keep = (t2 > filter_t2_min) & (amp >= amp_min) & np.isfinite(t2)
+        lines = lines[keep]
+    lines = lines[np.argsort(lines[:, 2])]
+    info = {"singular_values": s, "poles": mu, "m": m, "p": p}
+    return lines, info
+
+
+def transform_line_lists(lines: np.ndarray, dwell: float, *,
+                         damping_weight: float = 0.0) -> np.ndarray:
+    """The clustering features of pooled (k, 4) lines: x0 = f dwell and
+    x1 = damping_weight dwell / T2."""
+    f = lines[:, 2]
+    t2 = lines[:, 1]
+    x0 = f * dwell
+    x1 = damping_weight * dwell / np.maximum(t2, 1e-9)
+    return np.stack([x0, x1], axis=1)
+
+
+def dbscan(feats: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
+    """scikit-learn's ``DBSCAN(eps, min_samples).fit(feats).labels_``, in
+    numpy: the same labels, not only the same partition.
+
+    Neighbourhoods are the points at Euclidean distance <= eps, self
+    included, compared as the squared distance against eps^2, as sklearn's
+    KD tree does; a point with >= min_samples of them is a core point.
+    Clusters are numbered in the order of their first core point: each is
+    grown from that seed by a stack, expanding core points only, as
+    sklearn's ``dbscan_inner`` does, so a border point takes the first
+    cluster that reaches it.  Noise is -1.  A dense (n, n) distance matrix: for n up to a
+    few thousand.
+    """
+    x = np.asarray(feats, np.float64)
+    n = len(x)
+    d2 = np.sum((x[:, None, :] - x[None, :, :]) ** 2, axis=-1)
+    neighbours = [np.flatnonzero(row) for row in d2 <= eps * eps]
+    core = np.array([len(nb) >= min_samples for nb in neighbours], bool)
+    labels = np.full(n, -1, dtype=np.intp)
+    label = 0
+    for seed in range(n):
+        if labels[seed] != -1 or not core[seed]:
+            continue
+        stack = [seed]
+        while stack:
+            i = stack.pop()
+            if labels[i] != -1:
+                continue
+            labels[i] = label
+            if core[i]:
+                stack.extend(v for v in neighbours[i] if labels[v] == -1)
+        label += 1
+    return labels
+
+
+def llc_kbdm(data: np.ndarray, dwell: float, m_range, p: int,
+             eps: float = 2e-4, min_samples: int = 20, *,
+             filter_t2_min: float = 0.0, amp_min: float = 0.0,
+             damping_weight: float = 0.0):
+    """Line-list KBDM: a kbdm fit at every m of m_range, the lines pooled,
+    clustered by :func:`dbscan` on :func:`transform_line_lists`' features,
+    and each cluster consolidated by component-wise medians: A, T2 and f
+    their medians, phase the angle of median(Re d) + i median(Im d) with
+    d = A e^{i phase}.
+
+    Returns (consolidated (n_clusters, 4) sorted by frequency, pooled
+    (n_pool, 4), labels (n_pool,), -1 = noise).
+    """
+    pools = []
+    for m in m_range:
+        lines, _ = kbdm(data, dwell, m=int(m), p=p,
+                        filter_t2_min=filter_t2_min, amp_min=amp_min)
+        pools.append(lines)
+    pooled = np.concatenate(pools, axis=0) if pools else np.zeros((0, 4))
+    if len(pooled) == 0:
+        return np.zeros((0, 4)), pooled, np.zeros((0,), dtype=int)
+
+    feats = transform_line_lists(pooled, dwell, damping_weight=damping_weight)
+    labels = dbscan(feats, eps, min_samples)
+
+    out = []
+    for lab in sorted(set(labels) - {-1}):
+        grp = pooled[labels == lab]
+        d = grp[:, 0] * np.exp(1j * grp[:, 3])
+        out.append([
+            np.median(grp[:, 0]),
+            np.median(grp[:, 1]),
+            np.median(grp[:, 2]),
+            np.arctan2(np.median(d.imag), np.median(d.real)),
+        ])
+    consolidated = np.asarray(out, dtype=np.float64).reshape(-1, 4)
+    consolidated = consolidated[np.argsort(consolidated[:, 2])]
+    return consolidated, pooled, labels
 
 
 def refine(lines: np.ndarray, data: np.ndarray, dwell: float,

@@ -10,13 +10,16 @@ with numpy from a seed; each kernel runs at the main path's size and at an
 odd size, which the wrappers pad or the kernel takes as it is (the eigh
 probe, which pairs only even n, raises instead).
 """
+import re
+
 import numpy as np
 import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
 
 import torch_grid_worker as worker
-from llckbdm_tpu_torch.ops import _build, cuda_jacobi, cuda_linalg, cuda_probes
+from llckbdm_tpu_torch.ops import (_build, cuda_jacobi, cuda_linalg,
+                                   cuda_probes, dbscan)
 from llckbdm_tpu_torch.parallel import GridRunner
 from llckbdm_tpu_torch.pipeline.llckbdm import LlcKbdmConfig
 from llckbdm_tpu_torch.signals import LineList, line_list_from_np, sample_signal
@@ -282,6 +285,115 @@ def test_chol_kernel_resources(cuda):
             assert res["K"] == big_k
             assert res["local_bytes"] == 0, res
             assert res["blocks_per_sm"] >= 1, res
+
+
+# --- sizes past the kernels' limits, and config 2's shapes -----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn, k, field", [
+    ("gram_svd", cuda_linalg.MAX_K + 1, "KbdmConfig.p + oversample"),
+    ("cholqr_rinv", cuda_linalg.MAX_K + 8, "KbdmConfig.p + oversample"),
+    ("chol_solve", cuda_linalg.MAX_K_SOLVE + 2, "refined clusters"),
+    ("eig_cs", cuda_jacobi.MAX_N + 1, "KbdmConfig.p")])
+def test_kernel_refuses_size_and_names_the_field(cuda, fn, k, field):
+    """A CUDA tensor past a kernel's limit raises, naming the config field
+    to lower, and nothing falls back to the plain version."""
+    g = torch.from_numpy(_grams(np.random.default_rng(k), 2, k)).to(cuda)
+    calls = {"gram_svd": lambda: cuda_linalg.gram_svd(g),
+             "cholqr_rinv": lambda: cuda_linalg.cholqr_rinv(g, 1.0),
+             "chol_solve": lambda: cuda_linalg.chol_solve(g, g[..., 0], 1.0),
+             "eig_cs": lambda: cuda_jacobi.eig_cs(g)}
+    with pytest.raises(ValueError, match=re.escape(field)):
+        calls[fn]()
+    assert not _build.LAUNCHES and not _build.PLAIN_ON_CUDA
+
+
+def _brain_sweep(cuda, stop):
+    """Config 3's sweep (the brain signal, N=2048, m = 120..300 step 4,
+    p=24, so k=32) on the card, stopped at ``stop``."""
+    import pathlib
+    csv = pathlib.Path(__file__).parent.parent / "data" / "params_brain_sim.csv"
+    rows = np.loadtxt(csv, delimiter=",", skiprows=1, usecols=(1, 2, 3, 4))
+    sig = sample_signal(line_list_from_np(rows), 2048, 2.5e-4)
+    return kbdm_sweep(sig[None].to(cuda).to(torch.complex64), 2.5e-4,
+                      tuple(range(120, 301, 4)), KbdmConfig(p=24), _stop=stop)
+
+
+@pytest.mark.cuda
+def test_kernels_at_config2_widths_match_plain(cuda):
+    """k = 32 and n = 24 on the brain sweep's own matrices: eig_cs on its
+    reduced matrices (matched eigenvalues, 3e-3 of |A|_F, where both
+    converged), gram_svd on its projected Hankel blocks, cholqr_rinv on the
+    Grams of its last power iteration at the final passes' 3e-6 shift (both
+    versions held to the contract, the blocks being rank-deficient),
+    chol_solve at 32 and at the GN solves' 48 and 64."""
+    cfg = KbdmConfig(p=24)
+    ut = _brain_sweep(cuda, "reduced").reshape(-1, 24, 24).contiguous()
+    mu_k, res_k = cuda_jacobi.eig_cs_resid(ut, cfg.eig_sweeps)
+    mu_p, res_p = cuda_jacobi.eig_cs_resid_plain(ut, cfg.eig_sweeps)
+    fro = torch.linalg.matrix_norm(ut).cpu().numpy()
+    rk, rp = res_k.cpu().numpy() / fro, res_p.cpu().numpy() / fro
+    both = (rk < 1e-3) & (rp < 1e-3)
+    assert both.mean() >= 0.9, (rk, rp)
+    err = _matched(mu_k.cpu().numpy(), mu_p.cpu().numpy()) / fro
+    assert err[both].max() < 3e-3, err
+
+    m = _brain_sweep(cuda, "m_small").reshape(-1, 32, 32).contiguous()
+    s_k, v_k = cuda_linalg.gram_svd(m, cfg.eigh_sweeps)
+    s_p, _ = cuda_linalg.gram_svd_plain(m, cfg.eigh_sweeps)
+    torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-5 * s_p.max().item())
+    mm = m @ m.conj().transpose(-1, -2)
+    rec = (v_k * (s_k * s_k)[:, None, :]) @ v_k.conj().transpose(-1, -2)
+    torch.testing.assert_close(rec, mm, rtol=0,
+                               atol=1e-4 * mm.abs().max().item())
+
+    y = _brain_sweep(cuda, "powiter")
+    g = torch.einsum("vmsk,vmsl->vskl", y.conj(), y).reshape(-1, 32, 32)
+    g = 0.5 * (g + g.transpose(-1, -2).conj())
+    sh = _rel_shift(g, 3e-6)
+    bound = 0.2 * 32 * np.finfo(np.float32).eps / 3e-6
+    for fn in (cuda_linalg.cholqr_rinv, cuda_linalg.cholqr_rinv_plain):
+        x = fn(g, sh)
+        assert bool(torch.isfinite(torch.view_as_real(x)).all())
+        assert _contract_error(x, g, sh) < bound
+
+    rng = np.random.default_rng(48)
+    for k in (32, 48, 64):
+        gk = torch.from_numpy(_grams(rng, 64, k)).to(cuda)
+        b = torch.from_numpy(_crandn(rng, 64, k)).to(cuda)
+        shk = _rel_shift(gk, 1e-7)
+        x_p = cuda_linalg.chol_solve_plain(gk, b, shk)
+        torch.testing.assert_close(cuda_linalg.chol_solve(gk, b, shk), x_p,
+                                   rtol=0, atol=1e-5 * x_p.abs().max().item())
+    # the sweeps: cholqr_rinv 4 + 4 + 2, gram_svd 1 (the Takagi step)
+    assert dict(_build.LAUNCHES) == {"eig_cs": 1, "gram_svd": 2,
+                                     "cholqr_rinv": 11, "chol_solve": 3}
+
+
+@pytest.mark.cuda
+def test_dbscan_on_cuda_equals_cpu(cuda):
+    """The O(n^2) dbscan on the card gives the CPU's labels, in two
+    feature dimensions and with a zero second feature (where it also gives
+    dbscan_1d's)."""
+    rng = np.random.default_rng(11)
+    b, n = 16, 560
+    x = np.empty((b, n, 2), np.float32)
+    for i in range(b):
+        centers = rng.uniform(-0.2, 0.2, (5, 2))
+        x[i, :n // 2] = (centers[rng.integers(0, 5, n // 2)]
+                         + 3e-5 * rng.standard_normal((n // 2, 2)))
+        x[i, n // 2:] = rng.uniform(-0.25, 0.25, (n - n // 2, 2))
+    valid = rng.uniform(size=(b, n)) > 0.1
+    for feats in (x, np.stack([x[..., 0], np.zeros_like(x[..., 0])], -1)):
+        cpu = dbscan.dbscan(torch.as_tensor(feats), torch.as_tensor(valid),
+                            2e-4, 10)
+        got = dbscan.dbscan(torch.as_tensor(feats, device=cuda),
+                            torch.as_tensor(valid, device=cuda), 2e-4, 10)
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+    one_d = dbscan.dbscan_1d(torch.as_tensor(x[..., 0], device=cuda),
+                             torch.as_tensor(valid, device=cuda), 2e-4, 10)
+    np.testing.assert_array_equal(one_d.cpu().numpy(), cpu.numpy())
 
 
 @pytest.mark.cuda

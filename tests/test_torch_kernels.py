@@ -15,7 +15,7 @@ from scipy.optimize import linear_sum_assignment
 from llckbdm_tpu.ops import pallas_jacobi, pallas_linalg
 from llckbdm_tpu.ops.cplx import from_np, to_np
 from llckbdm_tpu.solver.kbdm import KbdmConfig
-from llckbdm_tpu_torch.ops import cuda_jacobi, cuda_linalg
+from llckbdm_tpu_torch.ops import _build, cuda_jacobi, cuda_linalg
 
 torch.set_num_threads(1)
 CFG = KbdmConfig()
@@ -177,25 +177,34 @@ def test_chol_solve_plain_matches_pallas(k):
         np.testing.assert_allclose(x_t[i], xe, rtol=1e-4, atol=1e-6)
 
 
-def test_wrappers_reject_bad_inputs():
+def test_wrappers_reject_bad_inputs(monkeypatch):
     with pytest.raises(TypeError):
         cuda_jacobi.eig_cs(torch.zeros(2, 4, 4, dtype=torch.complex128))
     with pytest.raises(ValueError):
         cuda_jacobi.eig_cs(torch.zeros(2, 4, 3, dtype=torch.complex64))
     with pytest.raises(ValueError):
-        cuda_linalg.gram_svd(torch.zeros(1, 34, 34, dtype=torch.complex64))
+        cuda_linalg.gram_svd(torch.zeros(1, 34, 33, dtype=torch.complex64))
     with pytest.raises(ValueError):
         cuda_linalg.chol_solve(torch.zeros(2, 4, 4, dtype=torch.complex64),
                                torch.zeros(2, 3, dtype=torch.complex64), 0.0)
-    # each wrapper has its own limit: the solve takes the 64 x 64 normal
-    # equations of 32 clusters, the others one lane (or two) per column
-    with pytest.raises(ValueError, match=r"\[1, 64\]"):
+    # each kernel has its own size limit, checked only where it would launch
+    # (a CUDA tensor; here the launch branch is forced, and the check
+    # raises before the library is touched): the solve takes the 64 x 64
+    # normal equations of 32 clusters, the others one lane (or two) per
+    # column; the message names the config field to lower.  A CPU tensor
+    # takes the plain version at any size (tests/test_torch_wide.py).
+    monkeypatch.setattr(_build, "use_kernel", lambda name, x: True)
+    with pytest.raises(ValueError, match=r"k <= 64.*refined clusters"):
         cuda_linalg.chol_solve(torch.zeros(1, 65, 65, dtype=torch.complex64),
                                torch.zeros(1, 65, dtype=torch.complex64), 0.0)
-    with pytest.raises(ValueError, match=r"\[1, 32\]"):
+    with pytest.raises(ValueError,
+                       match=r"k <= 32.*KbdmConfig\.p \+ oversample"):
         cuda_linalg.cholqr_rinv(torch.zeros(1, 33, 33, dtype=torch.complex64),
                                 0.0)
-    with pytest.raises(ValueError, match=r"\[1, 32\]"):
+    with pytest.raises(ValueError,
+                       match=r"k <= 32.*KbdmConfig\.p \+ oversample"):
+        cuda_linalg.gram_svd(torch.zeros(1, 34, 34, dtype=torch.complex64))
+    with pytest.raises(ValueError, match=r"n <= 32.*KbdmConfig\.p"):
         cuda_jacobi.eig_cs(torch.zeros(1, 33, 33, dtype=torch.complex64))
 
 

@@ -101,6 +101,92 @@ def test_dbscan_1d_matches_jax_label_for_label_and_sklearn():
         assert len(part(got[i])) >= 3          # the groups were found
 
 
+def _dbscan_sets():
+    """tests/test_dbscan.py:28-64's four point sets (blobs with scattered
+    noise, a blob with masked points, a chain, all noise) as one batch,
+    each padded with invalid points to the largest set's size."""
+    rng = np.random.default_rng(0)
+    centers = np.array([[0.0, 0.0], [1.0, 1.0], [-1.0, 0.5]])
+    blobs = np.concatenate(
+        [c + 0.02 * rng.standard_normal((40, 2)) for c in centers]
+        + [rng.uniform(-2, 2, (30, 2))])
+    masked = 0.01 * np.random.default_rng(1).standard_normal((64, 2))
+    chain = np.concatenate([np.arange(50)[:, None] * 0.05, np.zeros((50, 1))],
+                           axis=1)
+    noise = np.random.default_rng(2).uniform(-10, 10, (32, 2))
+    sets = [(blobs, len(blobs)), (masked, 40), (chain, 50), (noise, 32)]
+    n = len(blobs)
+    feats = np.zeros((len(sets), n, 2), np.float32)
+    valid = np.zeros((len(sets), n), bool)
+    for i, (pts, n_valid) in enumerate(sets):
+        feats[i, :len(pts)] = pts
+        valid[i, :n_valid] = True
+    return feats, valid
+
+
+def _jax_dbscan(feats, valid, eps, min_samples, max_iters=24):
+    return np.asarray(jax.vmap(lambda f, v: jdb.dbscan(
+        f, v, eps, min_samples, max_iters=max_iters))(jnp.asarray(feats),
+                                                      jnp.asarray(valid)))
+
+
+# each set's own (eps, min_samples) in tests/test_dbscan.py, run on all four
+@pytest.mark.parametrize("eps,min_samples", [(0.1, 8), (0.1, 5), (0.06, 3),
+                                             (1e-3, 5)])
+def test_dbscan_matches_jax_label_for_label(eps, min_samples):
+    feats, valid = _dbscan_sets()
+    got = tdb.dbscan(torch.as_tensor(feats), torch.as_tensor(valid), eps,
+                     min_samples)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_dbscan(feats, valid, eps, min_samples))
+    assert (got.numpy()[~valid] == -1).all()
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 3])
+def test_dbscan_max_iters_binds_as_in_jax(max_iters):
+    """A chain numbered against its order, so that min labels travel one
+    link a round (two with the pointer jump): rounds stop at max_iters
+    before the fixed point, and the labels are JAX's at the same bound."""
+    n = 64
+    feats = np.zeros((2, n, 2), np.float32)
+    feats[0, :, 0] = np.arange(n)[::-1] * 0.05
+    feats[1, :, 1] = np.arange(n) * 0.05            # converges at once
+    valid = np.ones((2, n), bool)
+    got = tdb.dbscan(torch.as_tensor(feats), torch.as_tensor(valid), 0.06, 2,
+                     max_iters=max_iters).numpy()
+    np.testing.assert_array_equal(
+        got, _jax_dbscan(feats, valid, 0.06, 2, max_iters))
+    assert len(set(got[0].tolist())) > 1            # not yet one cluster
+    full = tdb.dbscan(torch.as_tensor(feats), torch.as_tensor(valid), 0.06,
+                      2).numpy()
+    assert (full[0] == 0).all() and (full[1] == 0).all()
+
+
+def test_dbscan_with_zero_second_feature_is_dbscan_1d():
+    rng = np.random.default_rng(7)
+    x, valid = _pooled_features(rng, 6, 280)
+    feats = np.stack([x, np.zeros_like(x)], axis=-1)
+    for eps, min_samples in ((2e-4, 10), (1e-3, 4)):
+        got = tdb.dbscan(torch.as_tensor(feats), torch.as_tensor(valid), eps,
+                         min_samples)
+        want = tdb.dbscan_1d(torch.as_tensor(x), torch.as_tensor(valid), eps,
+                             min_samples)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_dbscan_chunks_give_the_same_labels(monkeypatch):
+    """Voxels split over several (chunk, n, n) blocks label as in one."""
+    rng = np.random.default_rng(8)
+    x, valid = _pooled_features(rng, 5, 120)
+    feats = torch.as_tensor(np.stack([x, 0.5 * x ** 2], axis=-1))
+    whole = tdb.dbscan(feats, torch.as_tensor(valid), 2e-4, 6)
+    monkeypatch.setattr(tdb, "_CHUNK_ELEMS", 2 * 120 * 120)
+    np.testing.assert_array_equal(
+        tdb.dbscan(feats, torch.as_tensor(valid), 2e-4, 6).numpy(),
+        whole.numpy())
+
+
 def test_compact_labels_and_masked_median_match_jax():
     rng = np.random.default_rng(6)
     x, valid = _pooled_features(rng, 4, 160)

@@ -1,16 +1,18 @@
 """The port's float64 oracle against the JAX package's, and the port's
 independence from the JAX package.
 
-``llckbdm_tpu_torch/oracle.py`` is the port's copy of the four functions of
-``llckbdm_tpu/oracle/reference.py`` that its checks use; on the same numpy
-inputs the two agree to 1e-12.  No module of the port, and not
-``chip_smoke.py``, imports or loads anything of ``llckbdm_tpu``.
+``llckbdm_tpu_torch/oracle.py`` is the port's copy of the functions of
+``llckbdm_tpu/oracle/reference.py``; on the same numpy inputs the two agree
+to 1e-12, and the port's numpy DBSCAN gives scikit-learn's labels.  No
+module of the port, and not ``chip_smoke.py``, imports or loads anything of
+``llckbdm_tpu``.
 """
 import ast
 import pathlib
 
 import numpy as np
 import pytest
+from sklearn.cluster import DBSCAN
 
 from llckbdm_tpu.oracle import reference
 from llckbdm_tpu_torch import oracle
@@ -59,6 +61,62 @@ def test_match_lines_and_line_errors_match_reference(five_peak_params):
                                rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError):
         oracle.match_lines(est[:3], truth)
+
+
+@pytest.mark.parametrize("noise,m,p", [(0.0, 180, 16), (1e-4, 180, 16),
+                                       (1e-4, 100, 24)])
+def test_kbdm_matches_reference(five_peak_params, noise, m, p):
+    _, sig = _noisy(five_peak_params, 4, noise)
+    for kw in ({}, {"return_all": True}, {"filter_t2_min": 0.04,
+                                          "amp_min": 0.6}):
+        got, ginfo = oracle.kbdm(sig, DWELL, m=m, p=p, **kw)
+        want, winfo = reference.kbdm(sig, DWELL, m=m, p=p, **kw)
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(ginfo["poles"], winfo["poles"], rtol=1e-12)
+        assert (ginfo["m"], ginfo["p"]) == (winfo["m"], winfo["p"])
+    with pytest.raises(ValueError):
+        oracle.kbdm(sig[:300], DWELL, m=180)
+
+
+def test_transform_line_lists_matches_reference(five_peak_params):
+    for weight in (0.0, 1.0, 0.3):
+        np.testing.assert_allclose(
+            oracle.transform_line_lists(five_peak_params, DWELL,
+                                        damping_weight=weight),
+            reference.transform_line_lists(five_peak_params, DWELL,
+                                           damping_weight=weight),
+            rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("eps,min_samples", [(0.1, 8), (0.25, 4), (0.05, 3)])
+def test_dbscan_labels_are_sklearns(eps, min_samples):
+    """Blobs, a chain and scattered points: the same labels as sklearn's
+    DBSCAN, numbering and border points included."""
+    rng = np.random.default_rng(9)
+    pts = np.concatenate(
+        [c + 0.03 * rng.standard_normal((40, 2)) for c in
+         rng.uniform(-1, 1, (3, 2))]
+        + [np.stack([np.linspace(-2, -1, 25), np.full(25, 1.5)], axis=1),
+           rng.uniform(-2, 2, (60, 2))])
+    pts = pts[rng.permutation(len(pts))]
+    got = oracle.dbscan(pts, eps, min_samples)
+    want = DBSCAN(eps=eps, min_samples=min_samples).fit(pts).labels_
+    np.testing.assert_array_equal(got, want)
+    assert len(set(got.tolist()) - {-1}) >= 3
+
+
+@pytest.mark.parametrize("damping_weight", [0.0, 1.0])
+def test_llc_kbdm_matches_reference(five_peak_params, damping_weight):
+    """The reference clusters with sklearn: the labels are equal, and the
+    consolidated and pooled lines agree to 1e-12."""
+    _, sig = _noisy(five_peak_params, 5, 1e-3)
+    args = (sig, DWELL, range(120, 181, 10), 16, 2e-4, 5)
+    got = oracle.llc_kbdm(*args, damping_weight=damping_weight)
+    want = reference.llc_kbdm(*args, damping_weight=damping_weight)
+    np.testing.assert_array_equal(got[2], want[2])
+    assert len(got[0]) >= 5
+    for x, y in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(x, y, rtol=1e-12, atol=1e-12)
 
 
 # --- the port loads nothing of the JAX package -----------------------------

@@ -6,7 +6,8 @@
 (b) The port's whole slice — llc_kbdm_fit then refine_lines — on a small
     configuration: the refined lines meet the 1e-8 gate and the cluster
     counts equal JAX llc_kbdm_fit's, with the JAX sketch as omega.
-(c) Importing the port never imports JAX.
+(c) The same with damping_weight != 0 (the 2-D dbscan) against JAX.
+(d) Importing the port never imports JAX, and reaches its parallel layer.
 """
 import dataclasses
 import pathlib
@@ -29,6 +30,7 @@ from llckbdm_tpu_torch import convert
 
 torch.set_num_threads(1)
 CFG = lt.KbdmConfig(p=16)
+LINE_FIELDS = ("amplitude", "t2", "frequency", "phase")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -187,9 +189,56 @@ def test_llc_kbdm_numpy_entry_point(five_peak_signal, five_peak_params):
     err = oracle.line_errors(cons[oracle.match_lines(cons, five_peak_params)],
                              five_peak_params)
     assert err.max() < 1e-8, f"max err {err.max():.3e}\n{err}"
-    with pytest.raises(NotImplementedError):
-        lp.llc_kbdm(sig, dwell, (120,), p=16, damping_weight=1.0,
-                    device="cpu")
+    # the 2-D feature space (O(n^2) dbscan) finds the same five lines
+    cons, pooled, counts = lp.llc_kbdm(sig, dwell, range(120, 257, 16), p=16,
+                                       min_samples=5, max_clusters=16,
+                                       damping_weight=1.0, refine_iters=3,
+                                       device="cpu")
+    assert counts.shape == (16,) and len(pooled) >= 5 * 9
+    err = oracle.line_errors(cons[oracle.match_lines(cons, five_peak_params)],
+                             five_peak_params)
+    assert err.max() < 1e-8, f"max err {err.max():.3e}\n{err}"
+
+
+def test_damped_llc_kbdm_fit_matches_jax(five_peak_params):
+    """damping_weight=1.0 on tests/test_pipeline.py's SMALL configuration,
+    a noiseless and a noisy (sigma 1e-3) voxel, the JAX sketch as omega:
+    cluster counts and masks equal JAX llc_kbdm_fit's (which clusters with
+    its O(n^2) dbscan too); the consolidated lines agree to the f32 stage's
+    tolerances of tests/test_torch_solver.py (other algorithms on the JAX
+    CPU path), the phase to 0.05 rad (measured 0.016); and they are the
+    lines of damping_weight=0, which clusters by dbscan_1d."""
+    dwell = 5e-4
+    sigs = np.stack([_noisy_config1(five_peak_params, seed, noise, dwell)[1]
+                     for seed, noise in ((0, 0.0), (1, 1e-3))])
+    cfg = LlcKbdmConfig(m_values=tuple(range(120, 181, 10)), eps=2e-4,
+                        min_samples=5, max_clusters=16, kbdm=CFG,
+                        damping_weight=1.0)
+    tcfg = convert.llc_config_from_ref(dataclasses.asdict(cfg))
+    k = CFG.p + CFG.oversample
+    omega = convert.sketch_from_np(np.asarray(jax.random.normal(
+        jax.random.PRNGKey(CFG.seed), (max(cfg.m_values), k),
+        dtype=jnp.float32)))
+    c = torch.as_tensor(sigs).to(torch.complex64)
+    cons, _, counts, _ = lp.llc_kbdm_fit(c, dwell, tcfg, omega=omega)
+    jcons, _, jcounts, _ = lt.llc_kbdm_fit(from_np(sigs), dwell, cfg)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    np.testing.assert_array_equal(cons.mask.numpy(), np.asarray(jcons.mask))
+    assert (counts.numpy()[:, :5] == len(cfg.m_values)).all()
+    live = cons.mask.numpy() > 0.5
+    got = {f: getattr(cons, f).numpy()[live] for f in LINE_FIELDS}
+    want = {f: np.asarray(getattr(jcons, f))[live] for f in LINE_FIELDS}
+    np.testing.assert_allclose(got["frequency"], want["frequency"], rtol=5e-3,
+                               atol=0.5)
+    np.testing.assert_allclose(got["amplitude"], want["amplitude"], rtol=0.1)
+    np.testing.assert_allclose(got["t2"], want["t2"], rtol=0.05)
+    dphi = np.abs(np.angle(np.exp(1j * (got["phase"] - want["phase"]))))
+    assert dphi.max() < 0.05, dphi
+
+    undamped = lp.llc_kbdm_fit(
+        c, dwell, dataclasses.replace(tcfg, damping_weight=0.0), omega=omega)
+    for x, y in zip(cons, undamped[0]):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 def test_llc_kbdm_default_device_is_cuda(five_peak_signal):
@@ -200,6 +249,17 @@ def test_llc_kbdm_default_device_is_cuda(five_peak_signal):
     sig, dwell = five_peak_signal
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
         lp.llc_kbdm(sig, dwell, (120,), p=16)
+
+
+def test_parallel_is_reachable_after_a_bare_import():
+    code = ("import llckbdm_tpu_torch as lp; "
+            "assert 'parallel' in lp.__all__; "
+            "print(lp.parallel.GridRunner.__name__, "
+            "lp.parallel.fit_and_refine_grid.__name__)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["GridRunner", "fit_and_refine_grid"]
 
 
 def test_import_does_not_load_jax():
