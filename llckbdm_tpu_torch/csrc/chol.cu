@@ -1,6 +1,6 @@
 // Batched shifted Cholesky G + shift I = R^H R (R upper) of small complex
 // Hermitian matrices, and the two things built on it:
-//   * cholqr_rinv: the upper-triangular R^{-1} (the CholeskyQR step), k <= 32;
+//   * cholqr_rinv: the upper-triangular R^{-1} (the CholeskyQR step), k <= 64;
 //   * chol_solve:  (G + shift I) x = b by forward and back substitution,
 //                  k <= 64.
 //
@@ -25,8 +25,9 @@
 // that holds one column.
 //
 // What the design does about it:
-//  * Sizes are template parameters K (cholqr_rinv: 16, 24, 32; chol_solve:
-//    16, 32, 64), so every loop unrolls and every entry has a register.  Any
+//  * Sizes are template parameters K (cholqr_rinv: 16, 24, 32, 64;
+//    chol_solve: 16, 32, 48, 64), so every loop unrolls and every entry has
+//    a register.  Any
 //    other k runs in the next K above it: lanes and rows at or beyond k hold
 //    the identity, and since the factor of blockdiag(G, I) is
 //    blockdiag(R, .), the leading k x k block is exact.
@@ -55,10 +56,18 @@
 //    and a lane takes R[i, p] x[p] off its two entries; its rows of R come
 //    from shared memory 16 steps at a time (row stride K + 2: the lanes'
 //    16-byte loads fall on distinct banks).
-//  * At K = 64 a matrix takes a block of four warps: each holds the same two
-//    columns a lane and every fourth row, so a coefficient goes to one warp
-//    only; the barrier is the block's, and the first warp does the backward
-//    substitution.
+//  * At K = 48 and 64 a matrix takes a block of four warps: each holds the
+//    same two columns a lane and every fourth row, so a coefficient goes to
+//    one warp only; the barrier is the block's.  At K = 48 a warp's lanes
+//    24-31 hold no column: they follow lane 0's arithmetic (so every address
+//    they read lies in the matrix) and write nothing.  chol_solve's backward
+//    substitution runs on the first warp (its shuffles span the whole warp
+//    at K = 48, where 24 lanes are no power of two).  cholqr_rinv's inverse
+//    gives each of the first K threads one column of X, all its rows in
+//    registers, read against the rows of R in shared memory as broadcasts;
+//    it is compiled at K = 64 alone above 32 (at 48 ptxas held it to 128
+//    registers and spilled; splitting a column over two threads put X in
+//    local memory, 0.45 ms at (2048, 64, 64) on an H100).
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,7 +80,7 @@ struct Shape {
   static constexpr int kWarpsPerMat = K > 32 ? 4 : 1;
   static constexpr int kLanes = K / kCols;           // lanes a matrix takes
   static constexpr int kRows = K / kWarpsPerMat;     // rows of a column a lane holds
-  static constexpr int kMatsPerWarp = 32 / kLanes;   // 4, 2, 2, 1 at K = 16, 24, 32, 64
+  static constexpr int kMatsPerWarp = 32 / kLanes;   // 4, 2, 2, 1, 1 at K = 16, 24, 32, 48, 64
   static constexpr int kBlockWarps =
       kWarpsPerMat > 1 ? kWarpsPerMat : (K <= 24 ? 4 : 2);
   static constexpr int kMatsPerBlock =
@@ -81,7 +90,8 @@ struct Shape {
 
 // Where a thread stands: matrix b of the batch, in the block's shared-memory
 // slot; its columns are c + kLanes q; it holds their rows j kWarpsPerMat + w.
-// owns: the lane has a matrix (at K = 24 a warp's last 8 lanes have none).
+// owns: the lane has columns (at K = 24 and 48 a warp's last 8 lanes have
+// none; at K = 48 they take c = 0 and compute what lane 0 computes).
 struct Place {
   int b, slot, c, w;
   bool owns;
@@ -93,7 +103,8 @@ __device__ __forceinline__ Place place() {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   Place p;
   if constexpr (S::kWarpsPerMat > 1) {
-    p = Place{static_cast<int>(blockIdx.x), 0, lane, warp, true};
+    const bool owns = lane < S::kLanes;
+    p = Place{static_cast<int>(blockIdx.x), 0, owns ? lane : 0, warp, owns};
   } else {
     const int sub = lane / S::kLanes;
     p.owns = sub < S::kMatsPerWarp;
@@ -237,7 +248,7 @@ __device__ __forceinline__ void factor(float2 (&e)[kCols][Shape<K>::kRows],
             for (int q = 0; q < kCols; ++q) {
               if (!needs<K>(q, j * W)) continue;
               csub_conj_mul(e[q][j], cf.x, cf.y, wv[q]);
-              if (j == (i + 1) / W && w == (i + 1) % W)
+              if (j == (i + 1) / W && w == (i + 1) % W && at.owns)
                 s_r[(i + 1) * LD + c + L * q] = e[q][j];
             }
           }
@@ -259,7 +270,7 @@ __device__ __forceinline__ void factor(float2 (&e)[kCols][Shape<K>::kRows],
           if (needs<K>(q, i - 1) && c + L * q > i - 1)
             csub_conj_mul(acc[q], prev[q].x, prev[q].y, yp);
       }
-      if (c == i % L && w == 0) {
+      if (c == i % L && w == 0 && at.owns) {
         const float yinv = 1.0f / fmaxf(ric[i / L].x, 1e-30f);
         s_y[i] = make_float2(acc[i / L].x * yinv, acc[i / L].y * yinv);
       }
@@ -282,57 +293,86 @@ __global__ void __launch_bounds__(Shape<K>::kThreads)
                        const float* __restrict__ shift,
                        float2* __restrict__ x_out, int batch, int k) {
   using S = Shape<K>;
-  static_assert(S::kWarpsPerMat == 1, "cholqr_rinv: a matrix within a warp");
   constexpr int LD = K, L = S::kLanes;
   __shared__ __align__(16) float2 smem[S::kMatsPerBlock * K * LD];
   const Place at = place<K>();
-  // the whole warp leaves together: its first matrix is past the end
-  if (blockIdx.x * S::kMatsPerBlock + threadIdx.x / 32 * S::kMatsPerWarp >= batch)
-    return;
+  if constexpr (S::kWarpsPerMat == 1) {
+    // the whole warp leaves together: its first matrix is past the end
+    if (blockIdx.x * S::kMatsPerBlock + threadIdx.x / 32 * S::kMatsPerWarp >= batch)
+      return;
+  }
   const bool active = at.owns && at.b < batch;
   const int c = at.c;
   float2* s_r = smem + at.slot * K * LD;
   const size_t base = static_cast<size_t>(active ? at.b : 0) * k * k;
 
-  float2 e[kCols][K];
-  load_columns<K>(e, g + base, k, active ? k : 0, c, 0);
+  float2 e[kCols][S::kRows];
+  load_columns<K>(e, g + base, k, active ? k : 0, c, at.w);
   float2 unused[kCols];
   factor<K, LD, false>(e, s_r, nullptr, at, active ? shift[at.b] : 0.0f, unused);
 
-  // X[i, :] = (e_i - sum_{p>i} R[i, p] X[p, :]) / R[i, i], bottom row first;
-  // the lane holds columns c + L q of X
-  float2 x[kCols][K];
+  // X[i, :] = (e_i - sum_{p>i} R[i, p] X[p, :]) / R[i, i], bottom row first
+  if constexpr (S::kWarpsPerMat == 1) {
+    // the lane holds columns c + L q of X
+    float2 x[kCols][K];
 #pragma unroll
-  for (int i = K - 1; i >= 0; --i) {
-    const float dinv = 1.0f / fmaxf(s_r[i * LD + i].x, 1e-30f);
-    float2 acc[kCols];
+    for (int i = K - 1; i >= 0; --i) {
+      const float dinv = 1.0f / fmaxf(s_r[i * LD + i].x, 1e-30f);
+      float2 acc[kCols];
 #pragma unroll
-    for (int q = 0; q < kCols; ++q)
-      acc[q] = make_float2(c + L * q == i ? 1.0f : 0.0f, 0.0f);
+      for (int q = 0; q < kCols; ++q)
+        acc[q] = make_float2(c + L * q == i ? 1.0f : 0.0f, 0.0f);
 #pragma unroll
-    for (int p = (i + 1) & ~1; p < K; p += 2) {
-      const float4 rp = *reinterpret_cast<const float4*>(&s_r[i * LD + p]);
+      for (int p = (i + 1) & ~1; p < K; p += 2) {
+        const float4 rp = *reinterpret_cast<const float4*>(&s_r[i * LD + p]);
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          if (!needs<K>(q, p)) continue;  // X[p, c] = 0 there
+          if (p > i) csub_mul(acc[q], rp.x, rp.y, x[q][p]);
+          csub_mul(acc[q], rp.z, rp.w, x[q][p + 1]);
+        }
+      }
+      // strictly zero below the diagonal, whatever R holds
+#pragma unroll
+      for (int q = 0; q < kCols; ++q)
+        x[q][i] = (!needs<K>(q, i) || c + L * q < i)
+                      ? make_float2(0.0f, 0.0f)
+                      : make_float2(acc[q].x * dinv, acc[q].y * dinv);
+    }
+    if (active) {
 #pragma unroll
       for (int q = 0; q < kCols; ++q) {
-        if (!needs<K>(q, p)) continue;  // X[p, c] = 0 there
-        if (p > i) csub_mul(acc[q], rp.x, rp.y, x[q][p]);
-        csub_mul(acc[q], rp.z, rp.w, x[q][p + 1]);
+        const int cc = c + L * q;
+#pragma unroll
+        for (int i = 0; i < K; ++i)
+          if (i < k && cc < k) x_out[base + i * k + cc] = x[q][i];
       }
     }
-    // strictly zero below the diagonal, whatever R holds
+  } else {
+    // a matrix a block: thread cc < K holds column cc of X, all K rows in
+    // registers; R comes from shared memory as broadcasts
+    const int cc = threadIdx.x;
+    if (cc >= K) return;  // whole warps leave
+    const size_t mat = static_cast<size_t>(blockIdx.x) * k * k;
+    float2 x[K];
 #pragma unroll
-    for (int q = 0; q < kCols; ++q)
-      x[q][i] = (!needs<K>(q, i) || c + L * q < i)
-                    ? make_float2(0.0f, 0.0f)
-                    : make_float2(acc[q].x * dinv, acc[q].y * dinv);
-  }
-  if (active) {
+    for (int i = K - 1; i >= 0; --i) {
+      const float dinv = 1.0f / fmaxf(s_r[i * LD + i].x, 1e-30f);
+      float2 acc = make_float2(cc == i ? 1.0f : 0.0f, 0.0f);
 #pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      const int cc = c + L * q;
+      for (int p = (i + 1) & ~1; p < K; p += 2) {
+        const float4 rp = *reinterpret_cast<const float4*>(&s_r[i * LD + p]);
+        if (p > i) csub_mul(acc, rp.x, rp.y, x[p]);
+        csub_mul(acc, rp.z, rp.w, x[p + 1]);
+      }
+      // strictly zero below the diagonal, whatever R holds
+      x[i] = cc < i ? make_float2(0.0f, 0.0f)
+                    : make_float2(acc.x * dinv, acc.y * dinv);
+    }
+    if (cc < k) {
 #pragma unroll
       for (int i = 0; i < K; ++i)
-        if (i < k && cc < k) x_out[base + i * k + cc] = x[q][i];
+        if (i < k) x_out[mat + i * k + cc] = x[i];
     }
   }
 }
@@ -344,11 +384,15 @@ __global__ void __launch_bounds__(Shape<K>::kThreads)
                       const float* __restrict__ shift,
                       float2* __restrict__ x_out, int batch, int k) {
   using S = Shape<K>;
-  static_assert(K % 16 == 0 && S::kMatsPerWarp * S::kLanes == 32,
-                "chol_solve: K = 16, 32 or 64, no lane without a matrix");
+  static_assert(K % 16 == 0 && (S::kMatsPerWarp * S::kLanes == 32 ||
+                                 S::kWarpsPerMat > 1),
+                "chol_solve: K = 16, 32, 48 or 64, no idle lane within a warp");
   constexpr int LD = K + 2;         // row stride of R in shared memory
   constexpr int kMat = K * LD + K;  // R, then y
   constexpr int L = S::kLanes, kChunk = 16;
+  // the backward substitution's shuffles: within a matrix's lanes where a
+  // warp holds several, else the whole warp (L = 24 is no power of two)
+  constexpr int kWidth = S::kMatsPerWarp > 1 ? L : 32;
   __shared__ __align__(16) float2 smem[S::kMatsPerBlock * kMat];
   const Place at = place<K>();
   if constexpr (S::kWarpsPerMat == 1) {
@@ -399,14 +443,14 @@ __global__ void __launch_bounds__(Shape<K>::kThreads)
       const int p = p0 + j;
       // x[p] is final: send it round from the lane that holds row p
       float2 xp;
-      xp.x = __shfl_sync(0xffffffffu, xa[p / L].x * xinv[p / L], p % L, L);
-      xp.y = __shfl_sync(0xffffffffu, xa[p / L].y * xinv[p / L], p % L, L);
+      xp.x = __shfl_sync(0xffffffffu, xa[p / L].x * xinv[p / L], p % L, kWidth);
+      xp.y = __shfl_sync(0xffffffffu, xa[p / L].y * xinv[p / L], p % L, kWidth);
 #pragma unroll
       for (int q = 0; q < kCols; ++q)
         if (c + L * q < p) csub_mul(xa[q], row[q][j].x, row[q][j].y, xp);
     }
   }
-  if (active) {
+  if (active && at.owns) {
 #pragma unroll
     for (int q = 0; q < kCols; ++q) {
       const int r = c + L * q;
@@ -460,14 +504,15 @@ int resources(Kernel kernel, int big_k, int threads, int* out) {
 
 }  // namespace
 
-// g: (batch, k, k) complex64, 1 <= k <= 32; shift: (batch,) float32.
+// g: (batch, k, k) complex64, 1 <= k <= 64; shift: (batch,) float32.
 // rinv: (batch, k, k) complex64.  Returns cudaGetLastError().
 extern "C" int llck_cholqr_rinv(const void* g, const void* shift, void* rinv,
                                 int batch, int k, void* stream) {
   if (batch <= 0) return 0;
   if (k <= 16) return launch_cholqr_rinv<16>(g, shift, rinv, batch, k, stream);
   if (k <= 24) return launch_cholqr_rinv<24>(g, shift, rinv, batch, k, stream);
-  return launch_cholqr_rinv<32>(g, shift, rinv, batch, k, stream);
+  if (k <= 32) return launch_cholqr_rinv<32>(g, shift, rinv, batch, k, stream);
+  return launch_cholqr_rinv<64>(g, shift, rinv, batch, k, stream);
 }
 
 // g: (batch, k, k) complex64, 1 <= k <= 64; b: (batch, k) complex64;
@@ -478,6 +523,7 @@ extern "C" int llck_chol_solve(const void* g, const void* b, const void* shift,
   if (batch <= 0) return 0;
   if (k <= 16) return launch_chol_solve<16>(g, b, shift, x, batch, k, stream);
   if (k <= 32) return launch_chol_solve<32>(g, b, shift, x, batch, k, stream);
+  if (k <= 48) return launch_chol_solve<48>(g, b, shift, x, batch, k, stream);
   return launch_chol_solve<64>(g, b, shift, x, batch, k, stream);
 }
 
@@ -487,9 +533,11 @@ extern "C" int llck_chol_resources(int solve, int k, int* out) {
   if (solve) {
     if (k <= 16) return resources(chol_solve_kernel<16>, 16, Shape<16>::kThreads, out);
     if (k <= 32) return resources(chol_solve_kernel<32>, 32, Shape<32>::kThreads, out);
+    if (k <= 48) return resources(chol_solve_kernel<48>, 48, Shape<48>::kThreads, out);
     return resources(chol_solve_kernel<64>, 64, Shape<64>::kThreads, out);
   }
   if (k <= 16) return resources(cholqr_rinv_kernel<16>, 16, Shape<16>::kThreads, out);
   if (k <= 24) return resources(cholqr_rinv_kernel<24>, 24, Shape<24>::kThreads, out);
-  return resources(cholqr_rinv_kernel<32>, 32, Shape<32>::kThreads, out);
+  if (k <= 32) return resources(cholqr_rinv_kernel<32>, 32, Shape<32>::kThreads, out);
+  return resources(cholqr_rinv_kernel<64>, 64, Shape<64>::kThreads, out);
 }

@@ -25,12 +25,20 @@
 //  * The n/2 row and column updates are then applied one after another, in
 //    the round's order (applying them at once diverges:
 //    llckbdm_tpu/ops/jacobi.py:232-237): each is only the 28n-flop row
-//    update, lane t owning column t, reading its (c, s) from shared memory.
+//    update, lane t owning column t (and t + 32 above n = 32), reading its
+//    (c, s) from shared memory.  A lane's two columns take their updates
+//    one after the other within the pair step: neither reads what the other
+//    writes, so one barrier a pair still suffices.  The number of columns
+//    a lane owns is a template parameter, so n <= 32 compiles to the
+//    one-column body.
 //  * At n <= 16 a warp holds two matrices (lanes 0-15 and 16-31), so no
-//    lane idles; up to n = 32 one matrix per warp.
+//    lane idles; up to n = 64 one matrix per warp (n/2 <= 32 pairs still
+//    give each pair's parameters a lane of their own).
 //  * The pair table (i, j) of the n - 1 rounds is built once per block.
 // The matrix lives in shared memory with a padded row stride so column
-// accesses do not land on one bank.  Odd n is zero-padded by the wrapper.
+// accesses do not land on one bank (n (n + 1) complex64 a matrix, 33 KB at
+// n = 64: a block that takes more than 48 KB opts in to it).  Odd n is
+// zero-padded by the wrapper.
 #include <cuda_runtime.h>
 
 namespace {
@@ -101,7 +109,8 @@ __device__ Rot rotation(float2 av, float2 dv, float2 bv) {
 }
 
 // per_warp matrices per warp (2 at n <= 16, else 1); lane t of a matrix's
-// 32 / per_warp lanes owns column t.
+// lanes = 32 / per_warp owns the columns t + lanes q below n, q < Cols.
+template <int Cols>
 __global__ void eig_cs_kernel(const float2* __restrict__ a,
                               float2* __restrict__ mu,
                               float* __restrict__ resid,
@@ -148,26 +157,29 @@ __global__ void eig_cs_kernel(const float2* __restrict__ a,
     __syncwarp();
     for (int k = 0; k < h; ++k) {  // applied one after another
       const int i = row[k] & 0xffff, j = row[k] >> 16;
-      if (t < n) {
+#pragma unroll
+      for (int q = 0; q < Cols; ++q) {  // the lane's columns
+        const int col = t + q * lanes;
+        if (col >= n) continue;
         float2 ni, nj;
-        if (t == i) {
+        if (col == i) {
           ni = rot[k].nii;
           nj = rot[k].nij;
-        } else if (t == j) {
+        } else if (col == j) {
           ni = rot[k].nij;
           nj = rot[k].njj;
         } else {
           // Row update (J^T A): row_i' = c ri - s rj;  row_j' = s ri + c rj
           const float2 c = rot[k].c, sn = rot[k].s;
-          const float2 ri = s[i * ld + t], rj = s[j * ld + t];
+          const float2 ri = s[i * ld + col], rj = s[j * ld + col];
           ni = csub(cmul(c, ri), cmul(sn, rj));
           nj = cadd(cmul(sn, ri), cmul(c, rj));
         }
-        s[i * ld + t] = ni;
-        s[j * ld + t] = nj;
+        s[i * ld + col] = ni;
+        s[j * ld + col] = nj;
         // columns = transposed rows (complex-symmetric)
-        s[t * ld + i] = ni;
-        s[t * ld + j] = nj;
+        s[col * ld + i] = ni;
+        s[col * ld + j] = nj;
       }
       __syncwarp();
     }
@@ -176,11 +188,14 @@ __global__ void eig_cs_kernel(const float2* __restrict__ a,
   // eigenvalues on the diagonal; off-diagonal energy with the diagonal
   // excluded by mask (subtracting it cancels to 0 in f32)
   float off = 0.0f;
-  if (t < n) {
-    if (active) mu[static_cast<size_t>(b) * n + t] = s[t * ld + t];
+#pragma unroll
+  for (int q = 0; q < Cols; ++q) {
+    const int r = t + q * lanes;
+    if (r >= n) continue;
+    if (active) mu[static_cast<size_t>(b) * n + r] = s[r * ld + r];
     for (int col = 0; col < n; ++col) {
-      if (col != t) {
-        const float2 v = s[t * ld + col];
+      if (col != r) {
+        const float2 v = s[r * ld + col];
         off += v.x * v.x + v.y * v.y;
       }
     }
@@ -192,7 +207,7 @@ __global__ void eig_cs_kernel(const float2* __restrict__ a,
 
 }  // namespace
 
-// a: (batch, n, n) complex64, n even, 2 <= n <= 32.  mu: (batch, n)
+// a: (batch, n, n) complex64, n even, 2 <= n <= 64.  mu: (batch, n)
 // complex64.  resid: (batch,) float32.  Returns cudaGetLastError().
 extern "C" int llck_eig_cs(const void* a, void* mu, void* resid, int batch,
                            int n, int sweeps, void* stream) {
@@ -205,7 +220,19 @@ extern "C" int llck_eig_cs(const void* a, void* mu, void* resid, int batch,
   const size_t smem = ((n - 1) * h + 1) / 2 * sizeof(float2) +
                       static_cast<size_t>(per_block) * n * (n + 1) * sizeof(float2) +
                       static_cast<size_t>(per_block) * h * sizeof(Rot);
-  eig_cs_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  // one column a lane up to n = 32, two above
+  void (*kernel)(const float2*, float2*, float*, int, int, int, int) =
+      n <= 32 ? eig_cs_kernel<1> : eig_cs_kernel<2>;
+  if (smem > 48 * 1024) {  // n = 64: 146 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch would report it
+      return static_cast<int>(err);
+    }
+  }
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(a), static_cast<float2*>(mu),
       static_cast<float*>(resid), batch, n, sweeps, per_warp);
   return static_cast<int>(cudaGetLastError());

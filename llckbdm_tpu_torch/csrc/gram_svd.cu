@@ -9,16 +9,21 @@
 // stable descending sort of s and of V's columns is done by the wrapper.
 // The plain PyTorch mirror is ops/cuda_linalg.py::gram_svd_plain.
 //
-// Design: one warp per matrix, kWarps matrices per block, and two lanes per
-// pair of a round (k = 24: 12 pairs on 24 lanes; k = 32: 16 on 32).  The
-// pairs of a round touch disjoint rows, so they rotate in parallel with no
-// change to the result.  Each lane of a pair holds every other entry of the
-// pair's two rows of F^T in registers, sums its half of the four pairwise
-// Gram entries there, and one __shfl_xor_sync(.., 1) per sum completes
-// them: IEEE addition is commutative, so both lanes hold the same bits and
-// compute the same c, s and w.  Each lane then rotates its half of the two
-// rows of F^T and of V^T.  A __syncwarp separates the rounds.  F^T and V^T
-// live in shared memory with a padded row stride.
+// Design: two lanes per pair of a round (k = 24: 12 pairs on 24 lanes;
+// k = 32: 16 on 32; k = 64: 32 on 64).  Up to k = 32 a matrix takes one warp
+// and a block kWarps matrices; above, a matrix takes a block of two warps
+// (its pairs need more than 32 lanes).  The pairs of a round touch disjoint
+// rows, so they rotate in parallel with no change to the result.  Each lane
+// of a pair holds every other entry of the pair's two rows of F^T in
+// registers, sums its half of the four pairwise Gram entries there, and one
+// __shfl_xor_sync(.., 1) per sum completes them (the two lanes of a pair
+// are neighbours in one warp): IEEE addition is commutative, so both lanes
+// hold the same bits and compute the same c, s and w.  Each lane then
+// rotates its half of the two rows of F^T and of V^T.  A barrier separates
+// the rounds: __syncwarp, or the two-warp block's __syncthreads.  F^T and
+// V^T live in shared memory with a padded row stride (2 k (k + 1) complex64
+// a matrix, 66.6 KB at k = 64; a launch whose block takes more than 48 KB
+// opts in to it).
 //
 // What bounds it now: shared-memory traffic.  Each pair step reads and
 // writes four rows of k entries (two of F^T, two of V^T): ~213 GB over the
@@ -30,7 +35,22 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // matrices (warps) per block
+constexpr int kWarps = 4;  // k <= 32: matrices (warps) per block
+
+// A matrix's threads (T) and a block's matrices (M) at H = k / 2.
+template <int H>
+struct Group {
+  static constexpr int T = H > 16 ? 64 : 32;
+  static constexpr int M = H > 16 ? 1 : kWarps;
+};
+
+template <int H>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (Group<H>::T > 32)
+    __syncthreads();  // the block is the matrix's two warps
+  else
+    __syncwarp();
+}
 
 // H = k / 2 entries of each row per lane.
 template <int H>
@@ -38,20 +58,20 @@ __global__ void gram_svd_kernel(const float2* __restrict__ m,
                                 float* __restrict__ sig,
                                 float2* __restrict__ vt_out, int batch,
                                 int sweeps) {
-  constexpr int k = 2 * H, ld = k + 1, mm = k - 1;
+  constexpr int k = 2 * H, ld = k + 1, mm = k - 1, T = Group<H>::T;
   extern __shared__ float2 smem[];
-  const int lane = threadIdx.x;
-  const int b = blockIdx.x * kWarps + threadIdx.y;
-  if (b >= batch) return;  // the whole warp leaves together
+  const int lane = threadIdx.x;  // 0 .. T - 1 within the matrix
+  const int b = blockIdx.x * Group<H>::M + threadIdx.y;
+  if (b >= batch) return;  // the matrix's threads leave together
   float2* ft = smem + threadIdx.y * 2 * k * ld;  // F^T rows (= conj(m) rows)
   float2* vt = ft + k * ld;                      // V^T rows
   const size_t base = static_cast<size_t>(b) * k * k;
-  for (int e = lane; e < k * k; e += 32) {
+  for (int e = lane; e < k * k; e += T) {
     const float2 v = m[base + e];
     ft[(e / k) * ld + e % k] = make_float2(v.x, -v.y);
     vt[(e / k) * ld + e % k] = make_float2(e / k == e % k ? 1.0f : 0.0f, 0.0f);
   }
-  __syncwarp();
+  group_sync<H>();
 
   const int q = lane >> 1;    // the pair of the round
   const int half = lane & 1;  // entries half, half + 2, ... of its rows
@@ -81,8 +101,8 @@ __global__ void gram_svd_kernel(const float2* __restrict__ m,
         gi += fi[e].x * fj[e].y - fi[e].y * fj[e].x;
       }
     }
-    // the pairwise Gram entries of columns i, j of F: both halves; all 32
-    // lanes shuffle (an idle pair of lanes sums zeros and skips)
+    // the pairwise Gram entries of columns i, j of F: both halves; every
+    // lane shuffles (an idle pair of lanes sums zeros and skips)
     gii += __shfl_xor_sync(0xffffffffu, gii, 1);
     gjj += __shfl_xor_sync(0xffffffffu, gjj, 1);
     gr += __shfl_xor_sync(0xffffffffu, gr, 1);
@@ -123,10 +143,10 @@ __global__ void gram_svd_kernel(const float2* __restrict__ m,
         vt[j * ld + col] = make_float2(s * vi.x + c * wv.x, s * vi.y + c * wv.y);
       }
     }
-    __syncwarp();  // the next round pairs rows other lanes wrote
+    group_sync<H>();  // the next round pairs rows other lanes wrote
   }
 
-  for (int l = lane; l < k; l += 32) {
+  for (int l = lane; l < k; l += T) {
     float ss = 0.0f;
     for (int e = 0; e < k; ++e) {
       const float2 f = ft[l * ld + e];
@@ -134,7 +154,7 @@ __global__ void gram_svd_kernel(const float2* __restrict__ m,
     }
     sig[static_cast<size_t>(b) * k + l] = sqrtf(ss);
   }
-  for (int e = lane; e < k * k; e += 32)
+  for (int e = lane; e < k * k; e += T)
     vt_out[base + e] = vt[(e / k) * ld + e % k];
 }
 
@@ -142,15 +162,19 @@ template <int H>
 int launch(const void* m, void* sig, void* vt, int batch, int sweeps,
            cudaStream_t stream) {
   constexpr int k = 2 * H;
-  const size_t smem = static_cast<size_t>(kWarps) * 2 * k * (k + 1) * sizeof(float2);
-  if (smem > 48 * 1024) {  // k = 32: 67.6 KB
+  using G = Group<H>;
+  const size_t smem = static_cast<size_t>(G::M) * 2 * k * (k + 1) * sizeof(float2);
+  if (smem > 48 * 1024) {  // k = 32: 67.6 KB; k = 64: 66.6 KB
     const cudaError_t err = cudaFuncSetAttribute(
         gram_svd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch would report it
+      return static_cast<int>(err);
+    }
   }
-  const dim3 block(32, kWarps);
-  const dim3 grid((batch + kWarps - 1) / kWarps);
+  const dim3 block(G::T, G::M);
+  const dim3 grid((batch + G::M - 1) / G::M);
   gram_svd_kernel<H><<<grid, block, smem, stream>>>(
       static_cast<const float2*>(m), static_cast<float*>(sig),
       static_cast<float2*>(vt), batch, sweeps);
@@ -159,7 +183,7 @@ int launch(const void* m, void* sig, void* vt, int batch, int sweeps,
 
 }  // namespace
 
-// m: (batch, k, k) complex64, k even, 2 <= k <= 32.  sig: (batch, k)
+// m: (batch, k, k) complex64, k even, 2 <= k <= 64.  sig: (batch, k)
 // float32, unsorted.  vt: (batch, k, k) complex64, V^T.  Returns
 // cudaGetLastError() (cudaErrorInvalidValue for another k).
 extern "C" int llck_gram_svd(const void* m, void* sig, void* vt, int batch,
@@ -175,7 +199,12 @@ extern "C" int llck_gram_svd(const void* m, void* sig, void* vt, int batch,
     LLCK_GRAM_SVD_CASE(7) LLCK_GRAM_SVD_CASE(8) LLCK_GRAM_SVD_CASE(9)
     LLCK_GRAM_SVD_CASE(10) LLCK_GRAM_SVD_CASE(11) LLCK_GRAM_SVD_CASE(12)
     LLCK_GRAM_SVD_CASE(13) LLCK_GRAM_SVD_CASE(14) LLCK_GRAM_SVD_CASE(15)
-    LLCK_GRAM_SVD_CASE(16)
+    LLCK_GRAM_SVD_CASE(16) LLCK_GRAM_SVD_CASE(17) LLCK_GRAM_SVD_CASE(18)
+    LLCK_GRAM_SVD_CASE(19) LLCK_GRAM_SVD_CASE(20) LLCK_GRAM_SVD_CASE(21)
+    LLCK_GRAM_SVD_CASE(22) LLCK_GRAM_SVD_CASE(23) LLCK_GRAM_SVD_CASE(24)
+    LLCK_GRAM_SVD_CASE(25) LLCK_GRAM_SVD_CASE(26) LLCK_GRAM_SVD_CASE(27)
+    LLCK_GRAM_SVD_CASE(28) LLCK_GRAM_SVD_CASE(29) LLCK_GRAM_SVD_CASE(30)
+    LLCK_GRAM_SVD_CASE(31) LLCK_GRAM_SVD_CASE(32)
 #undef LLCK_GRAM_SVD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

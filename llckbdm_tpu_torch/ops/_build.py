@@ -44,6 +44,7 @@ _SIGNATURES = {
     "llck_chol_resources": (_I, _I, _P),
     "llck_row_probe": (_P, _P, _P, _I, _I, _I, _P),
     "llck_eigh_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "llck_empty": (_P,),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -15,9 +15,9 @@ import torch.nn.functional as F
 
 from . import _build
 
-# The kernel's size limit (lane t owns column t: two matrices per warp up to
-# n = 16, then one); the plain version takes any n.
-MAX_N = 32
+# The kernel's size limit (lane t owns columns t and t + 32: two matrices per
+# warp up to n = 16, then one); the plain version takes any n.
+MAX_N = 64
 
 
 def _rr_pair(r: int, k: int, n: int) -> tuple[int, int]:
@@ -63,7 +63,7 @@ def _launch(flat: torch.Tensor, sweeps: int):
 def eig_cs_resid(a: torch.Tensor, sweeps: int = 10):
     """Eigenvalues of complex-symmetric a = a^T (NOT Hermitian), batched.
 
-    a : (..., n, n) complex64 (the kernel takes n <= 32).  Returns (mu,
+    a : (..., n, n) complex64 (the kernel takes n <= 64).  Returns (mu,
     resid): mu (..., n) complex64 eigenvalues (unordered) and resid (...,)
     float32, the final off-diagonal Frobenius norm of each matrix (the
     convergence counter).

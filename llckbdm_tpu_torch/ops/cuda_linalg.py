@@ -23,8 +23,11 @@ import torch.nn.functional as F
 from . import _build
 from .cuda_jacobi import _rr_pair
 
-# The kernels' size limits; the plain versions take any size.
-MAX_K = 32        # gram_svd, cholqr_rinv: one lane (or two per pair) per column
+# The kernels' size limits (the JAX package's kernels stop at 64 too, where
+# their smallest block fills a v5e's default scoped VMEM); the plain versions
+# take any size.
+MAX_K = 64        # gram_svd: two lanes a pair, two warps at k > 32;
+                  # cholqr_rinv: two columns a lane, four warps at k > 32
 MAX_K_SOLVE = 64  # chol_solve: two columns a lane, four warps at k > 32
 # What a caller lowers to stay inside a kernel's limit.
 _FIELD = {"gram_svd": "KbdmConfig.p + oversample",
@@ -86,7 +89,7 @@ def _gram_svd_finish(m, sig, vt, kk):
 def gram_svd(m: torch.Tensor, sweeps: int = 10):
     """Eigendecomposition of m m^H via one-sided Jacobi on F = m^H.
 
-    m : (..., k, k) complex64 (the kernel takes k <= 32).  Returns (s, v):
+    m : (..., k, k) complex64 (the kernel takes k <= 64).  Returns (s, v):
     singular values of m (..., k) float32 sorted descending and unitary v
     (..., k, k) complex64 with m m^H ~= v diag(s^2) v^H.
     """
@@ -204,7 +207,7 @@ def _chol_inplace(s: torch.Tensor, shift: torch.Tensor) -> None:
 def cholqr_rinv(g: torch.Tensor, shift) -> torch.Tensor:
     """R^{-1} (upper) with G + shift I = R^H R, batched.
 
-    g : (..., k, k) complex64 Hermitian PSD (the kernel takes k <= 32);
+    g : (..., k, k) complex64 Hermitian PSD (the kernel takes k <= 64);
     shift : (...,) per matrix diagonal shift (absolute).  Returns (..., k,
     k) complex64 upper-triangular R^{-1}; Q = y R^{-1} orthonormalizes y
     when G = y^H y.

@@ -10,6 +10,10 @@ pipeline's path: the tools ``llckbdm_tpu_torch.tools.kernel_smoke`` and
 CPU tensor to the plain version, which runs the kernel's arithmetic in
 PyTorch one step at a time and is the reference the kernel is held against.
 
+The row probe takes its schedule from the host, as the TPU kernel took it
+into SMEM: a CPU int32 tensor, checked on the host and handed to the kernel
+as a launch parameter, so a call never waits on the device.
+
 The eigh probe is a cost probe, not an eigensolver (see ``csrc/eigh_probe.cu``):
 its ``w`` is not the spectrum of A, and past one sweep its rotation chain is
 chaotic, so float32 rounding differences grow to O(1).  Elementwise parity
@@ -24,8 +28,8 @@ import torch
 from . import _build
 from .cuda_jacobi import _rr_pair
 
-MAX_N = 32           # one warp per matrix, lane t owns column t
-MAX_STEPS = 2048     # the row probe's schedule lives in shared memory
+MAX_N = 64           # one warp per matrix, lane t owns columns t and t + 32
+MAX_STEPS = 2048     # the row probe's schedule, a launch parameter
 MAX_PER_BLOCK = 8    # eigh probe: matrices (warps) per block
 PER_BLOCK = 4
 
@@ -65,11 +69,11 @@ def _row_probe_args(sched: torch.Tensor, a: torch.Tensor):
     if sched.shape[0] > MAX_STEPS:
         raise ValueError(f"row_probe: {sched.shape[0]} steps, at most "
                          f"{MAX_STEPS}")
-    if sched.device != a.device:
-        raise ValueError(f"row_probe: schedule on {sched.device}, matrices "
-                         f"on {a.device}")
+    if sched.device.type != "cpu":
+        raise ValueError(f"row_probe: the schedule is read on the host; pass "
+                         f"it as a CPU tensor, not on {sched.device}")
     if sched.numel():
-        lo, hi = (x.item() for x in torch.aminmax(sched))
+        lo, hi = int(sched.min()), int(sched.max())
         if lo < 0 or hi >= n:
             raise ValueError(f"row_probe: schedule entries in [{lo}, {hi}], "
                              f"need [0, {n})")
@@ -79,13 +83,14 @@ def _row_probe_args(sched: torch.Tensor, a: torch.Tensor):
 def row_probe(sched: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Apply the schedule's row steps to every matrix of a batch.
 
-    sched : (steps, 2) int32 row pairs (i, j), each in [0, n), on a's device.
-    a : (B, n, n) float32, n <= 32.  Per step, from the matrix before it:
+    sched : (steps, 2) int32 row pairs (i, j), each in [0, n), a CPU tensor
+    whatever a's device (a schedule on another device raises ValueError).
+    a : (B, n, n) float32, n <= 64.  Per step, from the matrix before it:
     c = a[i, j] / 4, s = 1 - c^2; row i = c row_i - s row_j, then row j =
     s row_i + c row_j, then a[i, j] = c.  Returns a new (B, n, n) tensor.
 
-    Checking the schedule's range reads it on the host, so on a CUDA tensor
-    each call synchronises with the device once.
+    The schedule is checked on the host and reaches the kernel as a launch
+    parameter: a call on a CUDA tensor does not synchronise with the device.
     """
     sched, a = _row_probe_args(sched, a)
     if not _build.use_kernel("row_probe", a):
@@ -101,8 +106,17 @@ def row_probe(sched: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def empty_launch() -> None:
+    """Launch one empty kernel on the current CUDA stream through the
+    library's ctypes path: the launch floor :func:`row_probe` is timed
+    against.  Needs a GPU."""
+    err = _build.library().llck_empty(torch.cuda.current_stream().cuda_stream)
+    _build.check("llck_empty", err)
+
+
 def row_probe_plain(sched: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of :func:`row_probe`, on any device."""
+    """The plain PyTorch version of :func:`row_probe`, on any device (the
+    schedule on the CPU, as there)."""
     sched, a = _row_probe_args(sched, a)
     _build.count_plain("row_probe", a)
     return _row_probe_flat(sched, a)
@@ -142,12 +156,13 @@ def eigh_probe(a: torch.Tensor, sweeps: int = 8, do_rows: bool = True,
                per_block: int = PER_BLOCK) -> EighProbe:
     """The Hermitian Jacobi cost probe of tools/bench_eigh_variants.py.
 
-    a : (B, n, n) complex64, n even, n <= 32.  sweeps * (n - 1) rounds of
+    a : (B, n, n) complex64, n even, n <= 64.  sweeps * (n - 1) rounds of
     n/2 row rotations of S (which starts as A); ``do_cols`` (copy each
     rotated row's conjugate into its column) and ``do_v`` (rotate V, which
     starts as A, too) act only with ``do_rows``.  ``per_block`` is the
-    kernel's matrices per block, in [1, 8]; the result does not depend on
-    it.  An odd n raises ValueError: the probe is not padded, because a
+    kernel's matrices per block, in [1, 8] (it takes fewer where they do not
+    fit in a block's shared memory: at n = 64 with ``do_v``, 3); the result
+    does not depend on it.  An odd n raises ValueError: the probe is not padded, because a
     padded row would change its pair schedule.
     """
     a = _eigh_probe_args(a, sweeps)

@@ -18,7 +18,14 @@ from . import cuda_linalg
 @contextlib.contextmanager
 def highest_precision():
     """Run float32 matmuls in full float32 (no TF32) inside the block — the
-    counterpart of the JAX package's ``Precision.HIGHEST`` sites."""
+    counterpart of the JAX package's ``Precision.HIGHEST`` sites.
+
+    It sets ``torch.set_float32_matmul_precision``, a process-wide setting,
+    and restores the previous value on exit: for as long as the block runs,
+    every thread of the process sees "highest", and a thread that changes
+    the setting meanwhile changes it for the block too.  The port starts no
+    thread of its own; a caller that runs it beside its own TF32 work in
+    another thread shares the one setting."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:

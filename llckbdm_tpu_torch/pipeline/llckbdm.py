@@ -141,7 +141,14 @@ def llc_kbdm(data: np.ndarray, dwell: float, m_range, p: int = 24,
     refine_iters > 0 additionally runs the Gauss-Newton polish (the stage
     that meets the 1e-8 oracle gate).  device: where to run; the default
     "cuda" raises where there is no CUDA device (pass device="cpu" to run
-    the kernels' plain versions on the CPU).
+    the kernels' plain versions on the CPU).  On a CUDA device the kernels
+    take p + 8 <= 64 (KbdmConfig's oversample is 8), so p <= 56, and at
+    most 32 clusters.  The solver runs its float32 power iterations whatever
+    ``KbdmConfig.subspace_bf16`` says, and ``RefineConfig.eigh_sweeps`` is
+    read by nothing; both are kept for parity with the JAX configurations.
+    The solver and the refinement switch torch's process-wide float32
+    matmul precision to "highest" while they run (``ops.linalg.
+    highest_precision``): another thread's matmuls see it meanwhile.
 
     Returns (consolidated, pooled, counts):
       consolidated : (k, 4) [or list of per-voxel (k_v, 4)] float64 rows of

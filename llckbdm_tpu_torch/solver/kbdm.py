@@ -35,7 +35,13 @@ from ..signals import LineList
 @dataclass(frozen=True)
 class KbdmConfig:
     """Solver configuration: the JAX package's fields and defaults, each
-    default pinned there by a measured accuracy gate (kbdm.py:47-120)."""
+    default pinned there by a measured accuracy gate (kbdm.py:47-120).
+
+    ``subspace_bf16`` is read by nothing: the port always runs the float32
+    power iterations, whatever its value (the JAX package also ignores it
+    on a CPU and runs bf16 only on a TPU).  It is kept so that a JAX
+    configuration converts field for field.
+    """
 
     p: int = 24                  # truncation rank / line capacity per run
     oversample: int = 8          # extra subspace dims (k = p + oversample)
@@ -159,8 +165,10 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     (..., S): the final Jacobi off-diagonal Frobenius norm of each reduced
     matrix relative to its own Frobenius norm (the convergence counter).
 
-    omega: the (m_max, k) float32 Gaussian sketch; drawn from
-    ``torch.Generator(device).manual_seed(cfg.seed)`` when absent.
+    omega: the (m_max, k) float32 Gaussian sketch.  When absent it is drawn
+    on the host from ``torch.Generator().manual_seed(cfg.seed)`` and copied
+    to c's device, so one seed gives one sketch on every device (a CUDA
+    generator draws other numbers from the same seed).
 
     _stop: profiling hook — return the named intermediate ("hankel" |
     "powiter" | "basis" | "m_small" | "takagi" | "reduced" | "eig") instead
@@ -189,9 +197,9 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     mk = torch.as_tensor(masks, device=dev)[:, :, None]    # (m_max, S, 1)
 
     if omega is None:
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        omega = torch.randn((m_max, k), generator=gen, device=dev,
-                            dtype=torch.float32)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        omega = torch.randn((m_max, k), generator=gen,
+                            dtype=torch.float32).to(dev)
     if omega.shape != (m_max, k):
         raise ValueError(f"omega: need shape {(m_max, k)}, got "
                          f"{tuple(omega.shape)}")

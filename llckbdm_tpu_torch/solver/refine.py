@@ -49,6 +49,13 @@ class RefinedLines(NamedTuple):
 
 @dataclass(frozen=True)
 class RefineConfig:
+    """Gauss-Newton settings: the JAX package's fields and defaults.
+
+    ``eigh_sweeps`` is read by nothing: the solve is the shifted Cholesky
+    kernel, which has no sweeps.  It is kept so that a JAX configuration
+    converts field for field.
+    """
+
     iters: int = 3
     f32_iters: int = 0           # cheap plain-f32 GN iterations run BEFORE
                                  # the `iters` f64-residual ones: the early

@@ -5,7 +5,9 @@
 For ``cholqr_rinv`` and ``chol_solve`` at the main path's shapes (V=2048
 voxels, 35 sweep entries: 71,680 matrices of 24 x 24 and 16 x 16; the
 Gauss-Newton solves of 16 and 32 clusters, 2048 matrices of 32 x 32 and
-64 x 64) and at each other compiled size: the wrapper's time per call
+64 x 64), at each other compiled size, and at a batch of 2048 at the wide
+widths (cholqr_rinv k = 40, 48, 64; the solves of 20 and 24 clusters, 40
+and 48): the wrapper's time per call
 (``tools.timing.cuda_ms``), the time of the C entry point called directly
 (no tensor allocated, no Python around the launch: what a launch too short
 for the host to keep up with takes on the device), the card's least time for
@@ -26,9 +28,10 @@ from . import bounds
 from .timing import cuda_ms
 
 SHAPES = {  # kernel -> (batch, k)
-    "cholqr_rinv": ((71680, 24), (71680, 16), (71680, 32), (71680, 20)),
+    "cholqr_rinv": ((71680, 24), (71680, 16), (71680, 32), (71680, 20),
+                    (2048, 40), (2048, 48), (2048, 64)),
     "chol_solve": ((71680, 16), (2048, 32), (2048, 64), (71680, 32),
-                   (16384, 64), (2048, 40)),
+                   (16384, 64), (2048, 40), (2048, 48)),
 }
 
 

@@ -6,7 +6,7 @@ on one NVIDIA GPU.  Counterpart of ``tools/bench_eigh_variants.py``.
 The same inputs (n=24, 4480 matrices, seeds 0 and 1, symmetric real and
 antisymmetric imaginary parts) and the same six runs: coefficients only,
 + rows, + column writes, full, one sweep, and a second matrices-per-block
-value.  The inputs are made as the TPU tool made them, padded to a multiple
+value; then rows + V, the one switch setting those runs leave out.  The inputs are made as the TPU tool made them, padded to a multiple
 of 512 matrices, and the first 4480 are kept: the kernel needs no padding.
 Each run checks the probe's invariants (|V|_F = |A|_F, and |S|_F = |A|_F
 unless columns are written) and finite w, and prints milliseconds per launch
@@ -26,11 +26,13 @@ from .timing import Timing, cuda_ms
 N, BATCH, SWEEPS, PAD = 24, 4480, 8, 512
 INVARIANT_TOL = 1e-5
 
-# the TPU tool's six runs, by name (its b_blk=256 run becomes per_block=2)
+# the TPU tool's six runs, by name (its b_blk=256 run becomes per_block=2),
+# and rows + V
 RUNS = {
     **{name: EIGH_VARIANTS[name] for name in ("coef", "rows", "rows+cols", "full")},
     "full sweeps=1": dict(sweeps=1),                  # fixed overhead probe
     "full per_block=2": dict(per_block=2),
+    "rows+v": EIGH_VARIANTS["rows+v"],                # not among the TPU tool's
 }
 
 
@@ -46,6 +48,21 @@ def make_inputs(n: int = N, batch: int = BATCH, device=None) -> torch.Tensor:
     z = a.astype(np.complex64)
     z.imag = ai
     return batch_from_lanes(z[..., :batch], device)
+
+
+def make_block_diagonal(n: int, batch: int, device=None) -> torch.Tensor:
+    """(batch, n, n) complex64 Hermitian matrices of Gaussian (seed 2) 4 x 4
+    diagonal blocks, for elementwise checks at any width: the round-robin
+    pairs that cross blocks read b = 0 and skip, and no step fills a
+    cross-block entry, so one sweep takes each block through only its own
+    6 pair steps, too few for the chain to grow float32 rounding
+    differences past 1e-5 (one sweep at n = 40 on dense inputs does)."""
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((batch, n, n))
+         + 1j * rng.standard_normal((batch, n, n)))
+    blk = np.arange(n) // 4
+    a = (x + np.conj(np.swapaxes(x, 1, 2))) * (blk[:, None] == blk[None, :])
+    return torch.from_numpy(a.astype(np.complex64)).to(device)
 
 
 def invariant_errors(a: torch.Tensor, out: EighProbe, do_rows: bool,
@@ -86,7 +103,7 @@ def run(n: int = N, batch: int = BATCH, sweeps: int = SWEEPS,
 
 
 def run_all() -> dict[str, Timing]:
-    """The six runs of :data:`RUNS`, in order."""
+    """The seven runs of :data:`RUNS`, in order."""
     return {name: run(**kw) for name, kw in RUNS.items()}
 
 

@@ -25,7 +25,8 @@ Operation counts, real flops (a complex multiply-add is 8):
   and 8n^2 for the two norms.
 
 The two Cholesky kernels are compiled at a few sizes (cholqr_rinv 16, 24,
-32; chol_solve 16, 32, 64) and run any other k padded up inside the kernel;
+32, 64; chol_solve 16, 32, 48, 64) and run any other k padded up inside
+the kernel;
 the counts here are those of the caller's k, since the padding is the
 implementation's cost and not the work's.
 

@@ -50,7 +50,7 @@ def _cs_matrices(rng, b, n):
     return a.astype(np.complex64)
 
 
-def _reduced(cuda, p, voxels=8):
+def _reduced(cuda, p, voxels=8, oversample=8):
     """Production reduced matrices of the KBDM sweep at rank p on the card:
     chip_smoke's noisy config-1 signals (N=512), m = 120..256 step 8."""
     rng = np.random.default_rng(p)
@@ -64,8 +64,8 @@ def _reduced(cuda, p, voxels=8):
                     + 1e-4 * (rng.standard_normal(512)
                               + 1j * rng.standard_normal(512)))
     c = torch.as_tensor(np.stack(sigs), device=cuda).to(torch.complex64)
-    ut = kbdm_sweep(c, DWELL, tuple(range(120, 257, 8)), KbdmConfig(p=p),
-                    _stop="reduced")
+    ut = kbdm_sweep(c, DWELL, tuple(range(120, 257, 8)),
+                    KbdmConfig(p=p, oversample=oversample), _stop="reduced")
     return ut.reshape(-1, p, p).contiguous()
 
 
@@ -92,12 +92,14 @@ def _matched(x, y):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 15, 24])
+@pytest.mark.parametrize("n", [16, 15, 24, 40, 64])
 def test_eig_cs_kernel_matches_plain(cuda, n):
-    # n = 24 (config 2's p) on production reduced matrices: ten sweeps leave
-    # the synthetic family unconverged in either version at that size
-    if n == 24:
-        a = _reduced(cuda, n)
+    # n = 24 (config 2's p) and the wide n = 40 and 64 (two columns a lane)
+    # on production reduced matrices: ten sweeps leave the synthetic family
+    # unconverged in either version from n = 24 on.  n = 64 takes the sweep
+    # at k = 64 (oversample 0), the widest the other kernels take.
+    if n >= 24:
+        a = _reduced(cuda, n, oversample=8 if n + 8 <= 64 else 64 - n)
     else:
         a = torch.from_numpy(_cs_matrices(np.random.default_rng(n), 128,
                                           n)).to(cuda)
@@ -133,8 +135,9 @@ def test_eig_cs_kernel_matches_plain(cuda, n):
     np.testing.assert_allclose(res0.cpu().numpy(), off, rtol=1e-5)
 
 
+# k = 40, 48 and 64: a matrix on two warps; 63 is padded to 64
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [K, K - 1, cuda_linalg.MAX_K])
+@pytest.mark.parametrize("k", [K, K - 1, 32, 40, 48, cuda_linalg.MAX_K, 63])
 def test_gram_svd_kernel_matches_plain(cuda, k):
     m = torch.from_numpy(_crandn(np.random.default_rng(k), 256, k, k)).to(cuda)
     s_k, v_k = cuda_linalg.gram_svd(m, CFG.eigh_sweeps)
@@ -171,10 +174,12 @@ def _rank_deficient(rng, b, k, rank, device):
     return y.conj().transpose(-1, -2) @ y
 
 
-# k: the three compiled sizes (16, 24, 32), an odd size under two of them,
-# and one that is padded up inside the kernel (20 runs in the 24-wide one)
+# k: the four compiled sizes (16, 24, 32, 64), an odd size under three of
+# them, and sizes padded up inside the kernel (20 runs in the 24-wide one;
+# 40, 48 and 56 in the 64-wide)
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [K, K - 1, 16, 32, 31, 20])
+@pytest.mark.parametrize("k", [K, K - 1, 16, 32, 31, 20, 40, 48, 47, 56, 64,
+                               63])
 def test_cholqr_rinv_kernel_matches_plain(cuda, k):
     g = torch.from_numpy(_grams(np.random.default_rng(k), 256, k)).to(cuda)
     sh = _rel_shift(g, 3e-6)
@@ -205,10 +210,12 @@ def test_cholqr_rinv_kernel_rank_deficient(cuda, shift_rel):
     assert dict(_build.LAUNCHES) == {"cholqr_rinv": 1}
 
 
-# k: the three compiled sizes (16, 32, 64), an odd size under each, and two
-# that are padded up inside the kernel (20 in the 32-wide, 40 in the 64-wide)
+# k: the four compiled sizes (16, 32, 48, 64), an odd size under each, and
+# sizes padded up inside the kernel (20 in the 32-wide, 40 in the 48-wide,
+# 56 in the 64-wide)
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [CFG.p, 32, CFG.p - 1, 31, 64, 63, 20, 40])
+@pytest.mark.parametrize("k", [CFG.p, 32, CFG.p - 1, 31, 64, 63, 20, 40, 48,
+                               47, 56])
 def test_chol_solve_kernel_matches_plain(cuda, k):
     rng = np.random.default_rng(k)
     g = torch.from_numpy(_grams(rng, 256, k)).to(cuda)
@@ -248,13 +255,13 @@ def test_chol_kernels_ragged_batches(cuda, batch):
     matrices), at every compiled size: the same as the plain version, and
     nothing written past the end of the output."""
     rng = np.random.default_rng(batch)
-    for k in (16, 24, 32):
+    for k in (16, 24, 32, 48, 64):
         g = torch.from_numpy(_grams(rng, batch, k)).to(cuda)
         sh = _rel_shift(g, 3e-6)
         x_p = cuda_linalg.cholqr_rinv_plain(g, sh)
         torch.testing.assert_close(cuda_linalg.cholqr_rinv(g, sh), x_p, rtol=0,
                                    atol=1e-5 * x_p.abs().max().item())
-    for k in (16, 32, 64):
+    for k in (16, 32, 48, 64):
         g = torch.from_numpy(_grams(rng, batch + 1, k)).to(cuda)
         b = torch.from_numpy(_crandn(rng, batch + 1, k)).to(cuda)
         sh = _rel_shift(g, 1e-7)
@@ -277,9 +284,10 @@ def test_chol_kernels_ragged_batches(cuda, batch):
 def test_chol_kernel_resources(cuda):
     """Every instantiation keeps its columns in registers: no local memory
     (spills or a stack frame), and the padded sizes share their K."""
-    for kernel, sizes in (("cholqr_rinv", {16: 16, 20: 24, 24: 24, 32: 32}),
-                          ("chol_solve", {16: 16, 20: 32, 32: 32, 40: 64,
-                                          64: 64})):
+    for kernel, sizes in (("cholqr_rinv", {16: 16, 20: 24, 24: 24, 32: 32,
+                                           40: 64, 48: 64, 56: 64, 64: 64}),
+                          ("chol_solve", {16: 16, 20: 32, 32: 32, 40: 48,
+                                          48: 48, 56: 64, 64: 64})):
         for k, big_k in sizes.items():
             res = cuda_linalg.chol_kernel_resources(kernel, k)
             assert res["K"] == big_k
@@ -317,6 +325,23 @@ def _brain_sweep(cuda, stop):
     sig = sample_signal(line_list_from_np(rows), 2048, 2.5e-4)
     return kbdm_sweep(sig[None].to(cuda).to(torch.complex64), 2.5e-4,
                       tuple(range(120, 301, 4)), KbdmConfig(p=24), _stop=stop)
+
+
+@pytest.mark.cuda
+def test_default_sketch_is_the_hosts_draw(cuda):
+    """Without omega the sweep on the card takes the sketch a CPU generator
+    draws from cfg.seed (a CUDA generator draws other numbers): the same
+    reduced matrices, bit for bit, as with that draw passed in."""
+    cfg = KbdmConfig(p=8)
+    sig = sample_signal(line_list_from_np(np.array(
+        [[1.0, 0.05, -60.0, 0.2], [0.7, 0.08, 45.0, -0.4]])), 256, DWELL)
+    c = sig[None].to(cuda).to(torch.complex64)
+    om = torch.randn((64, cfg.p + cfg.oversample), dtype=torch.float32,
+                     generator=torch.Generator().manual_seed(cfg.seed))
+    got = kbdm_sweep(c, DWELL, (48, 64), cfg, _stop="reduced")
+    want = kbdm_sweep(c, DWELL, (48, 64), cfg, _stop="reduced",
+                      omega=om.to(cuda))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -399,15 +424,41 @@ def test_dbscan_on_cuda_equals_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, sched_fn", [
     (24, kernel_smoke.schedule), (24, kernel_smoke.self_paired_schedule),
-    (7, kernel_smoke.self_paired_schedule)], ids=["tool", "self-paired", "n7"])
+    (7, kernel_smoke.self_paired_schedule),
+    (64, kernel_smoke.self_paired_schedule)],
+    ids=["tool", "self-paired", "n7", "n64"])
 def test_row_probe_kernel_matches_plain(cuda, n, sched_fn):
     rng = np.random.default_rng(n)
     a = torch.from_numpy(rng.standard_normal((256, n, n)).astype(np.float32)).to(cuda)
-    sched = torch.from_numpy(sched_fn(n, 16)).to(cuda)
+    sched = torch.from_numpy(sched_fn(n, 16))    # the schedule stays on the host
     got = cuda_probes.row_probe(sched, a)
     want = cuda_probes.row_probe_plain(sched, a)
     assert dict(_build.LAUNCHES) == {"row_probe": 1}
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_row_probe_never_syncs_and_refuses_a_schedule_on_the_card(cuda):
+    """The wrapper reads the schedule on the host and hands it to the kernel
+    as a launch parameter: under sync debug mode "error" a call that waited
+    on the device would raise.  A schedule on the card is refused."""
+    n, steps = 24, 16
+    a = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (256, n, n)).astype(np.float32)).to(cuda)
+    sched = torch.from_numpy(kernel_smoke.self_paired_schedule(n, steps))
+    want = cuda_probes.row_probe_plain(sched, a)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [cuda_probes.row_probe(sched, a) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for x in got:
+        torch.testing.assert_close(x, want, rtol=0, atol=1e-5)
+    assert _build.LAUNCHES["row_probe"] == 3
+    with pytest.raises(ValueError, match="read on the host"):
+        cuda_probes.row_probe(sched.to(cuda), a)
+    assert _build.LAUNCHES["row_probe"] == 3
 
 
 @pytest.mark.cuda
@@ -436,6 +487,39 @@ def test_eigh_probe_kernel_matches_plain(cuda, switches):
         other = cuda_probes.eigh_probe(big, bench_eigh_variants.SWEEPS,
                                        per_block=per_block, **switches)
         for x, y in zip(other, out):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switches", list(cuda_probes.EIGH_VARIANTS.values()),
+                         ids=list(cuda_probes.EIGH_VARIANTS))
+@pytest.mark.parametrize("n", [40, 64])
+def test_eigh_probe_wide_kernel_matches_plain(cuda, n, switches):
+    """n = 40 and 64, where a lane owns two columns.  One sweep against the
+    plain version on 4 x 4 block-diagonal inputs, where the chain is short
+    enough for elementwise parity (on dense inputs one sweep at n = 40 is
+    already chaotic): w to 1e-4 max|A|, the norms and the coefficient sum to
+    1e-5 relative.  Then the tool's 8 sweeps on dense inputs: the
+    invariants, finite w and the same bits at every matrices-per-block
+    value."""
+    a = bench_eigh_variants.make_block_diagonal(n, 512, cuda)
+    got = cuda_probes.eigh_probe(a, 1, **switches)
+    want = cuda_probes.eigh_probe_plain(a, 1, **switches)
+    torch.testing.assert_close(got.w, want.w, rtol=0,
+                               atol=1e-4 * a.abs().max().item())
+    for x, y in zip(got[1:], want[1:]):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=0)
+
+    a = bench_eigh_variants.make_inputs(n, 256, cuda)
+    got = cuda_probes.eigh_probe(a, bench_eigh_variants.SWEEPS, **switches)
+    assert bool(torch.isfinite(got.w).all())
+    errs = bench_eigh_variants.invariant_errors(a, got, switches["do_rows"],
+                                                switches["do_cols"])
+    assert max(errs.values()) <= 1e-5, errs
+    for per_block in (1, cuda_probes.MAX_PER_BLOCK):
+        other = cuda_probes.eigh_probe(a, bench_eigh_variants.SWEEPS,
+                                       per_block=per_block, **switches)
+        for x, y in zip(other, got):
             assert torch.equal(x, y)
 
 

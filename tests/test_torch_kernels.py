@@ -86,7 +86,9 @@ def test_eig_cs_first_sweep_matches_pallas_slot_by_slot(n):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("k", [24, 23])
+# k = 34 and 40: past the 32 lanes of one warp (the kernel takes two warps);
+# the Pallas kernel in interpret mode takes ~9 s at 34, more at 40
+@pytest.mark.parametrize("k", [24, 23, 34, pytest.param(40, marks=pytest.mark.slow)])
 def test_gram_svd_plain_matches_pallas(k):
     rng = np.random.default_rng(k)
     m = (rng.standard_normal((6, k, k))
@@ -109,7 +111,7 @@ def test_gram_svd_plain_matches_pallas(k):
             np.testing.assert_allclose(v.conj().T @ v, np.eye(k), atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [CFG.p + CFG.oversample, 16, 23, 32])
+@pytest.mark.parametrize("k", [CFG.p + CFG.oversample, 16, 23, 32, 40])
 def test_cholqr_rinv_plain_matches_pallas(k):
     g = _grams(np.random.default_rng(3), 5, k)
     shift = (3e-6 * np.einsum("bii->b", g.real) / k).astype(np.float32)
@@ -123,6 +125,43 @@ def test_cholqr_rinv_plain_matches_pallas(k):
         gs = g[b].astype(complex) + shift[b] * np.eye(k)
         np.testing.assert_allclose(x_t[b].conj().T @ gs @ x_t[b], np.eye(k),
                                    atol=1e-4)
+
+
+def _reduced_matrices(p):
+    """Production reduced matrices at rank p: the port's plain sweep of one
+    noisy config-1 voxel at m = 200 and 248."""
+    from llckbdm_tpu_torch.signals import line_list_from_np, sample_signal
+    from llckbdm_tpu_torch.solver.kbdm import KbdmConfig as TorchKbdmConfig
+    from llckbdm_tpu_torch.solver.kbdm import kbdm_sweep
+    lines = np.array([[1.0, 0.05, -120.0, 0.1], [0.8, 0.08, -40.0, 0.0],
+                      [1.2, 0.03, 15.0, -0.2], [0.5, 0.10, 90.0, 0.3],
+                      [0.9, 0.06, 200.0, 0.0]])
+    rng = np.random.default_rng(p)
+    sig = (sample_signal(line_list_from_np(lines), 512, 5e-4).numpy()
+           + 1e-4 * (rng.standard_normal(512) + 1j * rng.standard_normal(512)))
+    ut = kbdm_sweep(torch.as_tensor(sig[None]).to(torch.complex64), 5e-4,
+                    (200, 248), TorchKbdmConfig(p=p), _stop="reduced")
+    return ut.reshape(-1, p, p).numpy()
+
+
+# n past one warp's 32 lanes (the kernel gives a lane two columns there), on
+# production reduced matrices: the synthetic family above does not converge
+# in ten sweeps from n = 24 on, in either version.  The Pallas kernel in
+# interpret mode takes ~15 s at 34, more at 40.
+@pytest.mark.parametrize("n", [34, pytest.param(40, marks=pytest.mark.slow)])
+def test_eig_cs_wide_plain_matches_pallas(n):
+    a = _reduced_matrices(n)
+    mu_p, res_p = pallas_jacobi.eig_cs_resid(from_np(a), sweeps=CFG.eig_sweeps,
+                                             interpret=True)
+    mu_t, res_t = cuda_jacobi.eig_cs_resid(torch.from_numpy(a), CFG.eig_sweeps)
+    fro = np.linalg.norm(a, axis=(-1, -2))
+    # both converge (the solver's counter bound, 1e-3 |A|_F) and agree to
+    # the bound of test_eig_cs_resid_plain_matches_pallas
+    assert (res_t.numpy() / fro).max() < 1e-3
+    assert (np.asarray(res_p) / fro).max() < 1e-3
+    assert (_matched(mu_t.numpy(), to_np(mu_p)) / fro).max() < 3e-3
+    np.testing.assert_allclose(res_t.numpy() / fro, np.asarray(res_p) / fro,
+                               rtol=0, atol=1e-6)
 
 
 def _contract_error(x, g, shift):
@@ -189,23 +228,23 @@ def test_wrappers_reject_bad_inputs(monkeypatch):
                                torch.zeros(2, 3, dtype=torch.complex64), 0.0)
     # each kernel has its own size limit, checked only where it would launch
     # (a CUDA tensor; here the launch branch is forced, and the check
-    # raises before the library is touched): the solve takes the 64 x 64
-    # normal equations of 32 clusters, the others one lane (or two) per
-    # column; the message names the config field to lower.  A CPU tensor
+    # raises before the library is touched): each takes 64, as the JAX
+    # package's kernels do (the solve: the 64 x 64 normal equations of 32
+    # clusters); the message names the config field to lower.  A CPU tensor
     # takes the plain version at any size (tests/test_torch_wide.py).
     monkeypatch.setattr(_build, "use_kernel", lambda name, x: True)
     with pytest.raises(ValueError, match=r"k <= 64.*refined clusters"):
         cuda_linalg.chol_solve(torch.zeros(1, 65, 65, dtype=torch.complex64),
                                torch.zeros(1, 65, dtype=torch.complex64), 0.0)
     with pytest.raises(ValueError,
-                       match=r"k <= 32.*KbdmConfig\.p \+ oversample"):
-        cuda_linalg.cholqr_rinv(torch.zeros(1, 33, 33, dtype=torch.complex64),
+                       match=r"k <= 64.*KbdmConfig\.p \+ oversample"):
+        cuda_linalg.cholqr_rinv(torch.zeros(1, 65, 65, dtype=torch.complex64),
                                 0.0)
     with pytest.raises(ValueError,
-                       match=r"k <= 32.*KbdmConfig\.p \+ oversample"):
-        cuda_linalg.gram_svd(torch.zeros(1, 34, 34, dtype=torch.complex64))
-    with pytest.raises(ValueError, match=r"n <= 32.*KbdmConfig\.p"):
-        cuda_jacobi.eig_cs(torch.zeros(1, 33, 33, dtype=torch.complex64))
+                       match=r"k <= 64.*KbdmConfig\.p \+ oversample"):
+        cuda_linalg.gram_svd(torch.zeros(1, 65, 65, dtype=torch.complex64))
+    with pytest.raises(ValueError, match=r"n <= 64.*KbdmConfig\.p"):
+        cuda_jacobi.eig_cs(torch.zeros(1, 65, 65, dtype=torch.complex64))
 
 
 def test_cpu_tensors_take_the_plain_versions_uncounted():

@@ -104,6 +104,19 @@ def test_kbdm_sweep_default_sketch_is_seeded(five_peak_signal):
     assert len(lp.line_list_to_np(a)) == 5
 
 
+def test_kbdm_sweep_default_sketch_is_drawn_on_the_host(five_peak_signal):
+    """Without omega the sketch is the draw of a CPU generator seeded with
+    cfg.seed, copied to the signal's device: one seed gives one sketch on
+    every device (tests/test_torch_cuda.py holds the card to the same)."""
+    sig, dwell = five_peak_signal
+    om = torch.randn((128, K), dtype=torch.float32,
+                     generator=torch.Generator().manual_seed(TCFG.seed))
+    a = lp.kbdm_fit(_c64(sig), dwell, 128, TCFG)
+    b = lp.kbdm_fit(_c64(sig), dwell, 128, TCFG, omega=om)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 def test_kbdm_sweep_rejects_bad_input():
     with pytest.raises(ValueError):
         lp.kbdm_sweep(torch.zeros(100, dtype=torch.complex64), 1e-3, (64,),

@@ -106,6 +106,31 @@ def test_row_probe_rejects_bad_schedules():
     with pytest.raises(ValueError, match="at most"):
         cuda_probes.row_probe(torch.zeros(cuda_probes.MAX_STEPS + 1, 2,
                                           dtype=torch.int32), a)
+    # the schedule is read on the host: one on any other device is refused
+    # before anything runs (tests/test_torch_cuda.py refuses a CUDA one)
+    off_host = torch.zeros(4, 2, dtype=torch.int32, device="meta")
+    for fn in (cuda_probes.row_probe, cuda_probes.row_probe_plain):
+        with pytest.raises(ValueError, match="read on the host"):
+            fn(off_host, a)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64])
+@pytest.mark.parametrize("sched_fn", [kernel_smoke.schedule,
+                                      kernel_smoke.self_paired_schedule],
+                         ids=["tool", "self-paired"])
+def test_row_probe_host_schedule_matches_the_tool_loop(n, sched_fn):
+    """The schedule from the host, at the kernel's widths up to its new
+    limit: the plain version gives the tool's numpy loop, and the wrapper
+    leaves the caller's schedule as it was."""
+    b, steps = 8, 33
+    sched = sched_fn(n, steps)
+    a = np.random.default_rng(n).standard_normal((n, n, b)).astype(np.float32)
+    st = torch.from_numpy(sched.copy())
+    got = cuda_probes.row_probe(st, batch_from_lanes(a))
+    np.testing.assert_allclose(batch_to_lanes(got),
+                               kernel_smoke.reference(sched, a), rtol=0,
+                               atol=1e-5)
+    assert st.device.type == "cpu" and np.array_equal(st.numpy(), sched)
 
 
 def test_tool_entry_points():
@@ -113,6 +138,10 @@ def test_tool_entry_points():
     if not torch.cuda.is_available():
         assert kernel_smoke.main([]) == 2
         assert bench_eigh_variants.main() == 2
+    # the six runs of the TPU tool, then the switch setting they leave out
+    assert list(bench_eigh_variants.RUNS) == [
+        "coef", "rows", "rows+cols", "full", "full sweeps=1",
+        "full per_block=2", "rows+v"]
 
 
 def test_bench_chol_needs_a_gpu_and_covers_every_compiled_size():
@@ -123,11 +152,11 @@ def test_bench_chol_needs_a_gpu_and_covers_every_compiled_size():
     # the main path's shapes and a size that is padded up, within the limits
     sizes = {name: {k for _, k in shapes}
              for name, shapes in bench_chol.SHAPES.items()}
-    assert {16, 24, 32, 20} <= sizes["cholqr_rinv"]
+    assert {16, 24, 32, 48, 64, 20, 40} <= sizes["cholqr_rinv"]
     assert max(sizes["cholqr_rinv"]) <= cuda_linalg.MAX_K
-    assert {16, 32, 64, 40} <= sizes["chol_solve"]
+    assert {16, 32, 48, 64, 40} <= sizes["chol_solve"]
     assert max(sizes["chol_solve"]) <= cuda_linalg.MAX_K_SOLVE
-    for kernel, k in (("gram_svd", 24), ("cholqr_rinv", 33), ("chol_solve", 0)):
+    for kernel, k in (("gram_svd", 24), ("cholqr_rinv", 65), ("chol_solve", 0)):
         with pytest.raises(ValueError, match="chol_kernel_resources"):
             cuda_linalg.chol_kernel_resources(kernel, k)
 
@@ -180,6 +209,25 @@ def test_eigh_probe_inputs_are_the_tools():
     assert got.dtype == torch.complex64 and got.shape == (b, n, n)
     np.testing.assert_array_equal(batch_to_lanes(got.real), a[..., :b])
     np.testing.assert_array_equal(batch_to_lanes(got.imag), ai[..., :b])
+
+
+@pytest.mark.parametrize("n", [40, 64])
+def test_eigh_probe_block_diagonal_inputs(n):
+    """The wide parity inputs: Hermitian, zero exactly off their 4 x 4
+    diagonal blocks, and one sweep of the plain probe keeps the invariants
+    and a finite w in every variant."""
+    a = bench_eigh_variants.make_block_diagonal(n, 3)
+    blk = torch.arange(n) // 4
+    off = blk[:, None] != blk[None, :]
+    assert a.shape == (3, n, n) and a.dtype == torch.complex64
+    assert torch.equal(a, a.conj().transpose(-1, -2))
+    assert not bool(a[:, off].any()) and bool(a[:, ~off].all())
+    for switches in cuda_probes.EIGH_VARIANTS.values():
+        out = cuda_probes.eigh_probe_plain(a, 1, **switches)
+        assert bool(torch.isfinite(out.w).all())
+        errs = bench_eigh_variants.invariant_errors(
+            a, out, switches["do_rows"], switches["do_cols"])
+        assert max(errs.values()) <= 1e-5, errs
 
 
 def test_eigh_probe_rejects_odd_n():
