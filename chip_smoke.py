@@ -65,7 +65,8 @@
    fit and refine ms, peak memory, the Jacobi counter, and the 1e-8 oracle
    gate on its 8 voxels with the largest last GN step, missed only where
    the CPU plain path misses it too and 20 GN iterations on the card meet
-   it (at p=56 the 2048 voxels in two shards); then gram_svd at
+   it (each in one pass of the 2048 voxels, at most WIDE_PEAK_GIB = 60 GiB
+   at p=56); then gram_svd at
    k=40, 48 and 64 (on the north star's projected matrices at p = k - 8),
    cholqr_rinv at the same k (well-conditioned Grams) and eig_cs at n=40
    and 56 (on its reduced matrices at p = n, matched eigenvalue sets where
@@ -94,7 +95,8 @@
 8. Two ranks on the one card over gloo (spawned processes, file://
    rendezvous): with mesh data=1, time=2, the time-sharded refinement of
    the main path's lines against the single-process refinement (z within
-   5e-9, d within 5e-8), timed beside it, and fit_and_refine_grid on the
+   5e-9, d within 5e-8), timed beside it and beside the same per-rank
+   compute without its all-reduce, and fit_and_refine_grid on the
    V=2048 signals at the configuration's max_clusters=32 (64 x 64 GN
    solves) against the single-process refinement of the same 32 slots
    (the same bounds, the 1e-8 oracle gate on its 8 worst voxels; on each
@@ -104,6 +106,19 @@
    data=2, time=1, fit_grid_sharded's two row blocks against the main
    path's fit (counts and masks exact, lines within 1e-4).  A failed child
    fails the script.
+9. The entry points and the measuring tools, each phase printing its wall
+   time: ``entry()``'s config-1 kbdm_fit on the card (16 finite line slots,
+   every main-path kernel launched, no plain version on a CUDA tensor);
+   ``dryrun_multichip(8)``, eight gloo ranks on the one card (mesh data=4 x
+   time=2), refined (8, 4), every rank's launches read; the stage profiler
+   ``tools.ablate_sweep`` at V=2048, whose whole-sweep time must lie within
+   10% of kbdm_sweep's timed in the same call; the implicit FFT Hankel
+   apply against the dense one (2e-6) and ``tools.bench_fft_hankel`` at
+   its two shapes; ``tools.tune_sweeps``, ``tools.noise_gate_sweep`` and
+   ``tools.scaling_bench`` (1, 2 and 4 ranks of the one card) at their
+   defaults, each failing the script where it prints FAIL at the
+   production defaults, the data-parallel fit issuing no collective and
+   the time-sharded refine one all-reduce per GN iteration.
 
 The float64 oracle is the port's own (``llckbdm_tpu_torch/oracle.py``,
 numpy and scipy only): nothing of JAX or of the JAX package is loaded.  The
@@ -124,7 +139,6 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -137,10 +151,9 @@ BRAIN_N, BRAIN_DWELL, SPEC_GN_ITERS, SPEC_BATCH = 2048, 2.5e-4, 10, 2048
 # the wide phase: KbdmConfig.p past one warp's 32 lanes (k = p + 8 = 40 and
 # 64, the kernels' limit); the kernels alone at these widths
 WIDE_P, WIDE_K, WIDE_N = (32, 56), (40, 48, 64), (40, 56)
-# voxels a fit takes at once: the sweep holds ~8 copies of its (V, m, S, k)
-# basis (45.60 GiB at V=2048, k=40 on an 80 GB H100), so at k=64 the 2048
-# voxels go in two shards, as a grid would take them
-WIDE_SHARD = {32: VOXELS, 56: VOXELS // 2}
+# the wide phase's peak device memory at p=56: one pass of the sweep over
+# the 2048 voxels at k=64, whose (V, m, S, k) basis is 8.75 GiB a copy
+WIDE_PEAK_GIB = 60.0
 # GN iterations that must polish a wide voxel that misses the gate at
 # GN_ITERS (as the oracle's own polish takes 20)
 POLISH_ITERS = 20
@@ -167,23 +180,6 @@ LIBRARY = {
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def make_signals(oracle, v: int):
-    """bench.py's signals: the config-1 5-line list with per-voxel jitter of
-    frequency and amplitude, plus complex noise 1e-4, from seed 0."""
-    rng = np.random.default_rng(0)
-    sigs = np.empty((v, N), np.complex128)
-    truths = np.empty((v, 5, 4))
-    for i in range(v):
-        p = BASE_LINES.copy()
-        p[:, 2] += rng.normal(scale=2.0, size=5)
-        p[:, 0] *= 1.0 + rng.normal(scale=0.05, size=5)
-        sigs[i] = oracle.sample_signal(p, N, DWELL)
-        truths[i] = p
-    sigs += 1e-4 * (rng.standard_normal((v, N))
-                    + 1j * rng.standard_normal((v, N)))
-    return sigs, truths
 
 
 def make_grid_signals(v: int, chunk: int = 4096):
@@ -221,17 +217,13 @@ def rows_of(z, d, mask) -> np.ndarray:
                                       gn_step=None), DWELL)
 
 
-def gate_errors(oracle, voxels, sigs, truths, init_of, est_of) -> list:
+def gate_errors(voxels, sigs, truths, init_of, est_of) -> list:
     """Per voxel, the largest error of the refined lines against the float64
     oracle's Gauss-Newton polish (20 iterations) from init_of(i)."""
-    errs = []
-    for i in voxels:
-        est = est_of(i)
-        olines = oracle.refine(init_of(i), sigs[i], DWELL, iters=20)
-        sel_o = oracle.match_lines(olines, truths[i])
-        sel_e = oracle.match_lines(est, truths[i])
-        errs.append(float(oracle.line_errors(est[sel_e], olines[sel_o]).max()))
-    return errs
+    from llckbdm_tpu_torch.tools.five_peak import gate_error
+
+    return [gate_error(est_of(i), init_of(i), sigs[i], truths[i])
+            for i in voxels]
 
 
 def largest_step_voxels(gn_step: np.ndarray) -> list:
@@ -619,11 +611,11 @@ def spec_kernel_checks(oracle) -> dict:
     return out
 
 
-def wide_phase(oracle, sigs, truths, c32, c64, cfg, rcfg) -> dict:
+def wide_phase(sigs, truths, c32, c64, cfg, rcfg) -> dict:
     """The north star at the widths past one warp: for each p of WIDE_P
     (KbdmConfig(p=32): k = 40, eig_cs n = 32; KbdmConfig(p=56): k = 64, the
     kernels' limit, n = 56), llc_kbdm_fit and refine_lines on the top 16
-    clusters, in shards of WIDE_SHARD[p] voxels, driven once with the launch
+    clusters, in one pass of the VOXELS voxels, driven once with the launch
     counts set to 0 just before and read just after (every main-path kernel
     launched, no plain version on a CUDA tensor).  The 1e-8 oracle gate on
     the 8 voxels with the largest last GN step, asserted at p = 32.  At
@@ -636,50 +628,39 @@ def wide_phase(oracle, sigs, truths, c32, c64, cfg, rcfg) -> dict:
     The Jacobi counter on 32
     voxels, printed (at n = 56 ten sweeps leave some noise-pole matrices
     unconverged, on the CPU as here).  Host clock
-    around synchronised fit and refine, summed over the shards, and peak
-    device memory.  Returns the results and, for the kernel checks,
-    SPEC_BATCH of the sweep's own inputs to each wide kernel: the projected
-    k x k matrices gram_svd takes at each k of WIDE_K (p = k - 8) and the
-    reduced n x n matrices eig_cs takes at each n of WIDE_N (p = n)."""
-    from llckbdm_tpu_torch import (KbdmConfig, LineList, RefinedLines,
-                                   kbdm_sweep, line_list_to_np, llc_kbdm_fit,
+    around synchronised fit and refine, and peak device memory (at most
+    WIDE_PEAK_GIB at p = 56).  Returns the results and, for the kernel
+    checks, SPEC_BATCH of the sweep's own inputs to each wide kernel: the
+    projected k x k matrices gram_svd takes at each k of WIDE_K (p = k - 8)
+    and the reduced n x n matrices eig_cs takes at each n of WIDE_N
+    (p = n)."""
+    from llckbdm_tpu_torch import (KbdmConfig, LineList, kbdm_sweep,
+                                   line_list_to_np, llc_kbdm_fit,
                                    refine_lines, refined_to_np)
 
     out = {}
     voxels_for = -(-SPEC_BATCH // len(M_VALUES))    # voxels of SPEC_BATCH entries
     for p in WIDE_P:
         wcfg = dataclasses.replace(cfg, kbdm=KbdmConfig(p=p))
-        shard = WIDE_SHARD[p]
 
         def drive():
-            # fit and refine shard by shard, summing the seconds of each
-            times, tops, refs = [0.0, 0.0], [], []
-            for s0 in range(0, VOXELS, shard):
-                rows = slice(s0, s0 + shard)
-                t0 = time.perf_counter()
-                cons, _, _, _ = llc_kbdm_fit(c32[rows], DWELL, wcfg)
-                tops.append(LineList(*(x[..., :REFINE_CLUSTERS]
-                                       for x in cons)))
-                del cons
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                refs.append(refine_lines(c64[rows], tops[-1], DWELL, rcfg))
-                torch.cuda.synchronize()
-                times[0] += t1 - t0
-                times[1] += time.perf_counter() - t1
-            top = LineList(*(torch.cat(x) for x in zip(*tops)))
-            refined = RefinedLines(
-                z=torch.cat([r.z for r in refs]),
-                d=torch.cat([r.d for r in refs]),
-                mask=torch.cat([r.mask for r in refs]), lines=None,
-                gn_step=torch.cat([r.gn_step for r in refs]))
-            return top, refined, times
+            t0 = time.perf_counter()
+            cons, _, _, _ = llc_kbdm_fit(c32, DWELL, wcfg)
+            top = LineList(*(x[..., :REFINE_CLUSTERS] for x in cons))
+            del cons
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            refined = refine_lines(c64, top, DWELL, rcfg)
+            torch.cuda.synchronize()
+            return top, refined, (t1 - t0, time.perf_counter() - t1)
 
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         launches, (top, refined, (t_fit, t_refine)) = counted_path(
             f"wide north star, p={p}", drive)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(peak_gb <= WIDE_PEAK_GIB, f"wide p={p}: peak {peak_gb:.2f} GiB "
+              f"> {WIDE_PEAK_GIB} GiB")
         live = refined.mask > 0.5
         n_lines = live.sum(-1)
         check(bool(torch.isfinite(refined.z[live]).all()),
@@ -693,7 +674,7 @@ def wide_phase(oracle, sigs, truths, c32, c64, cfg, rcfg) -> dict:
                 z=ref.z[row[i]], d=ref.d[row[i]], mask=ref.mask[row[i]]),
                 DWELL) for i in vox}
             errs = gate_errors(
-                oracle, vox, sigs, truths,
+                vox, sigs, truths,
                 lambda i: line_list_to_np(LineList(*(x[row[i]] for x in tp))),
                 lambda i: lines[i])
             return lines, dict(zip(vox, errs))
@@ -741,7 +722,7 @@ def wide_phase(oracle, sigs, truths, c32, c64, cfg, rcfg) -> dict:
                       f"wide p={p}, voxel {i}: {POLISH_ITERS} GN iterations "
                       f"miss the gate ({polished[i]:.3e})")
         counter = jacobi_counter(c32[:32], DWELL, cfg.m_values, wcfg.kbdm)
-        print(f"wide north star V={VOXELS} in shards of {shard}, p={p} (k="
+        print(f"wide north star V={VOXELS} in one pass, p={p} (k="
               f"{p + wcfg.kbdm.oversample}): fit "
               f"{t_fit * 1e3:.1f} ms, refine {t_refine * 1e3:.1f} ms; peak "
               f"{peak_gb:.2f} GiB; refined lines per voxel min "
@@ -750,7 +731,7 @@ def wide_phase(oracle, sigs, truths, c32, c64, cfg, rcfg) -> dict:
               f"plain path meets it; missed on {missed}); Jacobi "
               f"off-diagonal (32 voxels) {counter:.3e}", flush=True)
         out[f"p{p}"] = dict(
-            launches=launches, shard=shard, fit_ms=t_fit * 1e3,
+            launches=launches, fit_ms=t_fit * 1e3,
             refine_ms=t_refine * 1e3, peak_gib=peak_gb, gate=gate,
             gate_voxels=voxels, gate_per_voxel=[errs[i] for i in voxels],
             missed_voxels=missed,
@@ -1032,7 +1013,7 @@ def spec_phases(oracle) -> dict:
     return out
 
 
-def damping_phase(oracle, sigs, truths, c32, c64, cfg, rcfg) -> dict:
+def damping_phase(sigs, truths, c32, c64, cfg, rcfg) -> dict:
     """The north star with damping_weight=1.0 (the O(n^2) dbscan on the 2-D
     features), top 16 clusters refined: every voxel keeps >= 5 lines and
     the 8 voxels with the largest last GN step meet the 1e-8 oracle gate."""
@@ -1063,7 +1044,7 @@ def damping_phase(oracle, sigs, truths, c32, c64, cfg, rcfg) -> dict:
     gn = refined.gn_step.cpu().numpy()
     voxels = largest_step_voxels(gn)
     gate = max(gate_errors(
-        oracle, voxels, sigs, truths,
+        voxels, sigs, truths,
         lambda i: line_list_to_np(LineList(*(x[i] for x in top))),
         lambda i: refined_to_np(refined._replace(
             z=refined.z[i], d=refined.d[i], mask=refined.mask[i]), DWELL)))
@@ -1238,7 +1219,7 @@ def probe_checks() -> dict:
     return out
 
 
-def grid_phase(oracle, cfg, rcfg) -> dict:
+def grid_phase(cfg, rcfg) -> dict:
     """GridRunner at config-5 size, then a resume after deleting shards."""
     from llckbdm_tpu_torch.ops import _build
     from llckbdm_tpu_torch.parallel import GridRunner
@@ -1282,7 +1263,7 @@ def grid_phase(oracle, cfg, rcfg) -> dict:
         voxels = largest_step_voxels(first["gn_step"])
 
         errs = gate_errors(
-            oracle, voxels, sigs, truths, lambda i: _cons_rows(first, i),
+            voxels, sigs, truths, lambda i: _cons_rows(first, i),
             lambda i: rows_of(first["refined_z"][i], first["refined_d"][i],
                               first["refined_mask"][i]))
         gate = max(errs)
@@ -1325,11 +1306,12 @@ def _cons_rows(res: dict, i: int) -> np.ndarray:
 def two_rank_child(rank: int, rdv: str, out_dir: str, sigs: np.ndarray,
                    lines: tuple, cfg, rcfg) -> None:
     """One of two ranks on the one card (gloo): the time-sharded refinement
-    of `lines` timed, fit_and_refine_grid (data=1, time=2), then
+    of `lines` timed, and the same rank's compute without the all-reduce,
+    fit_and_refine_grid (data=1, time=2), then
     fit_grid_sharded (data=2, time=1); saved to out_dir/rank{rank}.npz."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from llckbdm_tpu_torch import LineList
+    from llckbdm_tpu_torch import LineList, refine_lines
     from llckbdm_tpu_torch.ops import _build
     from llckbdm_tpu_torch.parallel import (distributed_init,
                                             fit_and_refine_grid,
@@ -1350,8 +1332,22 @@ def two_rank_child(rank: int, rdv: str, out_dir: str, sigs: np.ndarray,
             torch.cuda.synchronize()
             dist.barrier()
             ms.append((time.perf_counter() - t0) * 1e3)
+        # the same per-rank compute without the all-reduce (group=None, the
+        # rank's own time block): the time-sharded refine apart from its
+        # collective
+        t_lo = rank * (N // 2)
+        c_loc = torch.as_tensor(sigs[:, t_lo:t_lo + N // 2], device=DEVICE)
+        local_ms = []
+        for _ in range(4):                        # the first is a warm-up
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            refine_lines(c_loc, block, DWELL, rcfg, group=None, t_offset=t_lo)
+            torch.cuda.synchronize()
+            dist.barrier()
+            local_ms.append((time.perf_counter() - t0) * 1e3)
         out = {"ts_z": refined.z.cpu().numpy(), "ts_d": refined.d.cpu().numpy(),
-               "ts_ms": np.array(ms[1:])}
+               "ts_ms": np.array(ms[1:]), "local_ms": np.array(local_ms[1:])}
         # every consolidated slot of cfg (2C x 2C GN solves), with this
         # rank's launch counts set to 0 just before and read just after
         _build.reset_counts()
@@ -1375,36 +1371,22 @@ def two_rank_child(rank: int, rdv: str, out_dir: str, sigs: np.ndarray,
         dist.destroy_process_group()
 
 
-def spawn_and_wait(fn, nprocs: int, args: tuple, timeout: float) -> None:
-    """fn(rank, *args) in nprocs spawned processes; a failed child raises
-    (and the others are killed), as does one still running at the timeout."""
-    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-        if time.monotonic() >= deadline:
-            for proc in ctx.processes:
-                proc.kill()
-                proc.join()
-            raise RuntimeError(f"chip_smoke: children still running after "
-                               f"{timeout} s")
-
-
-def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single,
+def two_rank_phase(sigs, truths, cons, counts, lines, single,
                    single_all, cfg, rcfg) -> dict:
     """Two ranks on the one card over gloo, held against the single-process
     results of the main path (`cons`, `counts`; `single`: refine_grid of
     `lines`, the top REFINE_CLUSTERS slots; `single_all`: refine_grid of
     all of `cons`'s slots)."""
     from llckbdm_tpu_torch import LineList, line_list_to_np
+    from llckbdm_tpu_torch.entry import spawn_ranks
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        spawn_and_wait(two_rank_child, 2,
-                       (str(pathlib.Path(tmp) / "rdv"), tmp, sigs,
-                        tuple(x.cpu().numpy() for x in lines), cfg, rcfg),
-                       timeout=600)
+        spawn_ranks(two_rank_child, 2,
+                    (str(pathlib.Path(tmp) / "rdv"), tmp, sigs,
+                     tuple(x.cpu().numpy() for x in lines), cfg, rcfg),
+                    timeout=600)
         t_spawn = time.perf_counter() - t0
         outs = [dict(np.load(pathlib.Path(tmp) / f"rank{r}.npz"))
                 for r in range(2)]
@@ -1439,7 +1421,7 @@ def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single,
           f"fit_and_refine_grid refined {chain['chain_z'].shape} slots")
     voxels = largest_step_voxels(chain["chain_gn_step"])
     gate = max(gate_errors(
-        oracle, voxels, sigs, truths,
+        voxels, sigs, truths,
         lambda i: line_list_to_np(LineList(*(x[i] for x in cons))),
         lambda i: rows_of(chain["chain_z"][i], chain["chain_d"][i],
                           chain["chain_mask"][i])))
@@ -1462,18 +1444,199 @@ def two_rank_phase(oracle, sigs, truths, cons, counts, lines, single,
     check(fit_err <= 1.0, f"fit_grid_sharded's lines differ by {fit_err:.3e} "
           f"of the bound 1e-4 + 1e-4 |b|")
     ts_ms = float(np.median(outs[0]["ts_ms"]))
+    local_ms = float(np.median(outs[0]["local_ms"]))
     print(f"two ranks on one card (gloo): time-sharded refine {ts_ms:.1f} ms "
-          f"(runs {outs[0]['ts_ms'].round(1).tolist()}); |dz|, |dd| vs single "
+          f"(runs {outs[0]['ts_ms'].round(1).tolist()}), of which the same "
+          f"per-rank compute without its all-reduce {local_ms:.1f} ms (runs "
+          f"{outs[0]['local_ms'].round(1).tolist()}); |dz|, |dd| vs single "
           f"{errs['ts']}; fit_and_refine_grid (C={cfg.max_clusters}) |dz|, "
           f"|dd| {errs['chain']}, launches per rank {chain_launches}, "
           f"oracle gate {gate:.3e} on voxels {voxels}; fit_grid_sharded "
           f"counts and masks exact, lines within {fit_err:.3e} of the bound "
           f"1e-4 + 1e-4 |b|; children "
           f"{t_spawn:.1f} s", flush=True)
-    return {"ts_refine_ms": ts_ms, "ts_err": errs["ts"],
+    return {"ts_refine_ms": ts_ms, "ts_compute_only_ms": local_ms,
+            "ts_err": errs["ts"],
             "chain_err": errs["chain"], "chain_gate": gate,
             "chain_launches": chain_launches,
             "sharded_fit_err": fit_err, "children_s": t_spawn}
+
+
+def entry_phase() -> dict:
+    """entry()'s config-1 kbdm_fit step on its default device, the card:
+    16 finite line slots, every main-path kernel launched and no plain
+    version on a CUDA tensor."""
+    from llckbdm_tpu_torch.entry import entry
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    check(args[0].is_cuda and args[0].shape == (512,),
+          "entry(): the example signal is not a (512,) tensor on the card")
+    launches, out = counted_path("entry()", lambda: fn(*args))
+    check(out.amplitude.shape == (16,) and all(
+        bool(torch.isfinite(x).all()) for x in out),
+          f"entry(): {tuple(out.amplitude.shape)} line slots, or not finite")
+    wall = time.perf_counter() - t0
+    print(f"entry: 16 finite line slots, {int(out.mask.sum().item())} valid; "
+          f"{wall:.2f} s", flush=True)
+    return {"launches": launches, "valid_lines": int(out.mask.sum().item()),
+            "wall_s": wall}
+
+
+def dryrun_phase() -> dict:
+    """dryrun_multichip(8) on the one card: eight gloo ranks (NCCL refuses
+    two ranks a card), mesh data=4 x time=2, one fit_and_refine_grid step
+    on V=8 voxels of N=64.  The refined (8, 4) lines are finite; on every
+    rank chol_solve was launched and no plain version ran on a CUDA
+    tensor, and every rank that fits (time index 0) launched every
+    main-path kernel."""
+    from llckbdm_tpu_torch.entry import dryrun_config, dryrun_multichip
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = dryrun_multichip(8)
+    wall = time.perf_counter() - t0
+    cfg, _ = dryrun_config()
+    check(res["mesh"] == {"data": 4, "time": 2} and res["backend"] == "gloo",
+          f"dry run: mesh {res['mesh']} over {res['backend']}")
+    check(res["z"].shape == (8, cfg.max_clusters),
+          f"dry run: refined {res['z'].shape}")
+    live = res["mask"] > 0.5
+    check(bool(np.isfinite(res["z"][live]).all()
+               and np.isfinite(res["d"][live]).all()),
+          "dry run: non-finite refined lines")
+    for r, (launches, plain) in enumerate(zip(res["launches"], res["plain"])):
+        check(not any(plain.values()), f"dry run rank {r}: a plain version "
+              f"ran on CUDA: {plain}")
+        need = MAIN_KERNELS if res["time_ranks"][r] == 0 else ("chol_solve",)
+        check(all(launches.get(k, 0) > 0 for k in need),
+              f"dry run rank {r}: launches {launches}")
+    print(f"dry run: 8 ranks on one card, wall {wall:.2f} s (spawn "
+          f"included); launches per rank {res['launches']}", flush=True)
+    return {"mesh": res["mesh"], "backend": res["backend"],
+            "refined_shape": list(res["z"].shape),
+            "refined_lines": int(live.sum()), "launches": res["launches"],
+            "wall_s": wall}
+
+
+def stages_phase(kcfg) -> dict:
+    """tools.ablate_sweep at the north star (V=2048): every _stop prefix of
+    the sweep timed by the host clock (median of 3), with its work model
+    and bound, driven with the launch counts set to 0 before and read after.
+    The whole sweep's cumulative time must lie within 10% of kbdm_sweep
+    itself, timed the same way in the same call."""
+    from llckbdm_tpu_torch import kbdm_sweep
+    from llckbdm_tpu_torch.tools import ablate_sweep, five_peak
+    from llckbdm_tpu_torch.tools.timing import host_ms
+
+    t0 = time.perf_counter()
+    launches, rows = counted_path(
+        "ablate_sweep", lambda: ablate_sweep.run(VOXELS, 3, DEVICE, kcfg))
+    sigs, _ = five_peak.signals(VOXELS, amp_jitter=False)
+    c = torch.as_tensor(sigs, device=DEVICE).to(torch.complex64)
+    whole = host_ms(lambda: kbdm_sweep(c, DWELL, M_VALUES, kcfg), DEVICE)
+    last = rows[-1].cum_ms
+    print(f"stages: the sweep's last prefix {last:.3f} ms, kbdm_sweep "
+          f"{whole}; {time.perf_counter() - t0:.2f} s", flush=True)
+    check(abs(last - whole.ms) <= 0.1 * whole.ms,
+          f"ablate_sweep's whole sweep {last:.3f} ms is not within 10% of "
+          f"kbdm_sweep's {whole.ms:.3f} ms")
+    return {"stages": [r._asdict() for r in rows], "sweep_ms": whole.ms,
+            "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
+def fft_hankel_phase() -> dict:
+    """The implicit FFT Hankel operator on the card against the dense
+    hankel_matrices(c, m, shift) @ x in complex128, with and without shift,
+    to 2e-6 of the largest entry (complex64 rounding of two transforms);
+    then tools.bench_fft_hankel at its two shapes."""
+    from llckbdm_tpu_torch.ops.hankel import (hankel_apply_fft,
+                                              hankel_fft_spectrum,
+                                              hankel_matrices)
+    from llckbdm_tpu_torch.tools import bench_fft_hankel
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    errs = {}
+    for n, m, shift, j in ((512, 256, 0, 840), (512, 180, 3, 24),
+                           (2048, 512, 1, 32)):
+        c, x = crandn(gen, 16, n), crandn(gen, 16, m, j)
+        y = hankel_apply_fft(hankel_fft_spectrum(c, m, shift), x, m)
+        ref = (hankel_matrices(c.to(torch.complex128), m, shift)
+               @ x.to(torch.complex128))
+        err = ((y - ref).abs().amax() / ref.abs().amax()).item()
+        errs[f"n={n},m={m},shift={shift},J={j}"] = err
+        check(err < 2e-6, f"hankel_apply_fft (n={n}, m={m}, shift={shift}) "
+              f"disagrees with the dense apply: {err:.3e}")
+    print(f"fft hankel: hankel_apply_fft vs dense on the card, max rel err "
+          f"{errs} (< 2e-6)", flush=True)
+    bench = {}
+    for name, shape in bench_fft_hankel.SHAPES.items():
+        print(f"## bench_fft_hankel {name}", flush=True)
+        bench[name] = bench_fft_hankel.run(shape, DEVICE)
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"fft hankel: {wall:.2f} s", flush=True)
+    return {"apply_rel_err": errs, "bench": bench, "wall_s": wall}
+
+
+def tools_phase() -> dict:
+    """The measuring tools on the card at their defaults, each raising
+    where it prints FAIL at the production defaults: tune_sweeps (the
+    eig_cs counter against eig_sweeps; the two gates at every (eig_sweeps,
+    eigh_sweeps) pair, the default (10, 7) first; the smallest pair that
+    passes both), noise_gate_sweep (8 voxels, 8 GN iterations, noise 1e-4 ..
+    1e-2) and scaling_bench on 1, 2 and 4 gloo ranks of the one card (the
+    data-parallel fit must issue no collective, the time-sharded refine one
+    all-reduce per GN iteration and its control none; every rank launched
+    every main-path kernel and no plain version on a CUDA tensor)."""
+    from llckbdm_tpu_torch.tools import (noise_gate_sweep, scaling_bench,
+                                         tune_sweeps)
+
+    out = {}
+    t0 = time.perf_counter()
+    launches, tune = counted_path("tune_sweeps", lambda: tune_sweeps.run(
+        DEVICE))
+    check(tune["ok"], "tune_sweeps: FAIL at the default sweep budgets")
+    out["tune_sweeps"] = dict(
+        counter=tune["counter"], smallest_passing=tune["smallest_passing"],
+        gates={f"{a},{b}": g for (a, b), g in tune["gates"].items()},
+        launches=launches, wall_s=time.perf_counter() - t0)
+    print(f"tune_sweeps: {out['tune_sweeps']['wall_s']:.2f} s", flush=True)
+
+    t0 = time.perf_counter()
+    launches, noise = counted_path("noise_gate_sweep",
+                                   lambda: noise_gate_sweep.run(device=DEVICE))
+    check(noise["ok"], "noise_gate_sweep: FAIL at the production noise 1e-4")
+    out["noise_gate_sweep"] = dict(noise, launches=launches,
+                                   wall_s=time.perf_counter() - t0)
+    print(f"noise_gate_sweep: {out['noise_gate_sweep']['wall_s']:.2f} s",
+          flush=True)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scale = scaling_bench.run((1, 2, 4), DEVICE)
+    for row in scale["dp_scaling"]:
+        check(row["collectives"] == [0] * row["ranks"],
+              f"scaling_bench: the data-parallel fit on {row['ranks']} ranks "
+              f"issued collectives {row['collectives']}")
+        for r, (launches, plain) in enumerate(zip(row["launches"],
+                                                  row["plain"])):
+            check(not any(plain.values())
+                  and all(launches.get(k, 0) > 0 for k in MAIN_KERNELS),
+                  f"scaling_bench, {row['ranks']} ranks, rank {r}: launches "
+                  f"{launches}, plain on CUDA {plain}")
+    probe = scale["overlap_probe"]
+    iters = scaling_bench.OVERLAP_RCFG.iters
+    check(probe["with_collectives"] == [{"all_reduce": iters}] * 4
+          and probe["without_collectives"] == [{}] * 4,
+          f"scaling_bench: the time-sharded refine issued "
+          f"{probe['with_collectives']}, its control "
+          f"{probe['without_collectives']}")
+    out["scaling_bench"] = dict(scale, wall_s=time.perf_counter() - t0)
+    print(f"scaling_bench: {out['scaling_bench']['wall_s']:.2f} s (spawns "
+          f"included)", flush=True)
+    return out
 
 
 def profile_main_path(main_path, wall_ms: float) -> dict:
@@ -1589,13 +1752,16 @@ def main() -> int:
                                    llc_kbdm_fit, oracle, refine_lines,
                                    refined_to_np)
     from llckbdm_tpu_torch.ops import _build
+    from llckbdm_tpu_torch.tools import five_peak
 
     t0 = time.perf_counter()
     _build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    sigs, truths = make_signals(oracle, VOXELS)
+    # bench.py's signals: the config-1 lines with per-voxel jitter of
+    # frequency and amplitude, plus complex noise 1e-4, from seed 0
+    sigs, truths = five_peak.signals(VOXELS, 1e-4)
     c64 = torch.as_tensor(sigs, device=DEVICE)
     c32 = c64.to(torch.complex64)
     cfg = LlcKbdmConfig(m_values=M_VALUES, eps=2e-4, min_samples=20,
@@ -1666,7 +1832,7 @@ def main() -> int:
     gn = refined.gn_step.cpu().numpy()
     worst_voxels = largest_step_voxels(gn)
     errs = gate_errors(
-        oracle, worst_voxels, sigs, truths,
+        worst_voxels, sigs, truths,
         lambda i: line_list_to_np(LineList(*(x[i] for x in top(cons)))),
         lambda i: refined_to_np(refined._replace(
             z=refined.z[i], d=refined.d[i], mask=refined.mask[i]), DWELL))
@@ -1691,7 +1857,7 @@ def main() -> int:
 
     # --- the spec-scale gates, damping_weight != 0, the 2-D dbscan --------
     spec = spec_phases(oracle)
-    damp = damping_phase(oracle, sigs, truths, c32, c64, cfg, rcfg)
+    damp = damping_phase(sigs, truths, c32, c64, cfg, rcfg)
     same = (damp.pop("counts") == counts).all(-1).sum().item()
     print(f"damping_weight=1.0: cluster counts equal to the main path's "
           f"(damping_weight=0) on {same} of {VOXELS} voxels", flush=True)
@@ -1705,7 +1871,7 @@ def main() -> int:
             spec_widths[name] if name == "chol_solve" else [spec_widths[name]])
 
     # --- past one warp: p = 32 and 56, the kernels at k, n <= 64 ----------
-    spec["wide"], wide_inputs = wide_phase(oracle, sigs, truths, c32, c64,
+    spec["wide"], wide_inputs = wide_phase(sigs, truths, c32, c64,
                                            cfg, rcfg)
     for name, rows in wide_kernel_checks(wide_inputs).items():
         results[name]["wide_shapes"] = rows
@@ -1715,7 +1881,7 @@ def main() -> int:
     results.update(probe_checks())
 
     # --- the grid layer ---------------------------------------------------
-    grid = grid_phase(oracle, cfg, rcfg)
+    grid = grid_phase(cfg, rcfg)
     from llckbdm_tpu_torch.parallel import refine_grid
     single_all = refine_grid(c64, cons, DWELL, rcfg)
     single_ms = []
@@ -1725,7 +1891,7 @@ def main() -> int:
         single = refine_grid(c64, top(cons), DWELL, rcfg)
         torch.cuda.synchronize()
         single_ms.append((time.perf_counter() - t0) * 1e3)
-    two = two_rank_phase(oracle, sigs, truths, cons, counts, top(cons),
+    two = two_rank_phase(sigs, truths, cons, counts, top(cons),
                          single, single_all, cfg, rcfg)
     two["single_refine_ms"] = float(np.median(single_ms[1:]))
     print(f"single-process refine_grid of the same lines: "
@@ -1735,6 +1901,20 @@ def main() -> int:
     # rank 1 fits nothing: its launches are the 64 x 64 GN solves alone
     results["chol_solve"]["launches_gn64"] = two["chain_launches"][1][
         "chol_solve"]
+
+    # --- the entry points, the stage profiler, the FFT operator, the tools
+    new = {"entry": entry_phase(), "dryrun": dryrun_phase(),
+           "stages": stages_phase(cfg.kbdm), "fft_hankel": fft_hankel_phase(),
+           **tools_phase()}
+    for name in MAIN_KERNELS:
+        results[name]["launches_new_paths"] = {
+            path: (sum(x.get(name, 0) for x in res["launches"])
+                   if isinstance(res["launches"], list)
+                   else res["launches"].get(name, 0))
+            for path, res in new.items() if "launches" in res}
+        results[name]["launches_new_paths"]["scaling_bench"] = sum(
+            x.get(name, 0) for row in new["scaling_bench"]["dp_scaling"]
+            for x in row["launches"])
 
     sources = {
         "eig_cs": ("llckbdm_tpu_torch/csrc/eig_cs.cu",
@@ -1758,7 +1938,7 @@ def main() -> int:
                       "refine_ms": t_refine * 1e3, "peak_gib": peak_gb,
                       "jacobi_offdiag_rel": offdiag, "gate_max_err": gate,
                       "profile": prof, "spec": spec, "grid": grid,
-                      "two_ranks": two}))
+                      "two_ranks": two, "new_paths": new}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

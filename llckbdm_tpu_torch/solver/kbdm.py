@@ -206,26 +206,34 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
 
     # LAYOUT: sweep blocks live at (..., m_max, S, k) so every Hankel apply
     # is ONE matmul per voxel over (m_max, S*k) columns.
+    # MEMORY: a (..., m_max, S, k) block is the sweep's unit of memory
+    # (3.28 GiB at V=2048, S=35, k=24).  Each one is freed as soon as its
+    # last reader is done and masks are applied in place, so that no more
+    # than the current block, its successor and one einsum's operand
+    # copies are alive at once.  The arithmetic is that of the out-of-place
+    # form, operation for operation.
     def apply_op(x):
         """Hankel apply to x (..., m, S, j) -> (..., m, S, j); x may omit
         the batch dims (the (m, S, k) sketch)."""
-        xm = x * mk
+        # the masked input, contiguous in x's logical layout, so that its
+        # flattening is a view (x may be an einsum's permuted output)
+        xm = torch.empty(x.shape, dtype=torch.complex64, device=dev)
+        torch.mul(x, mk, out=xm)
         j = xm.shape[-1]
         y = h0 @ xm.reshape(*xm.shape[:-2], ns * j)
-        return y.reshape(*y.shape[:-1], ns, j) * mk
+        del xm
+        return y.reshape(*y.shape[:-1], ns, j).mul_(mk)
 
-    def orth_sk(y, passes, shift_rel):
-        """Orthonormalize the k columns of every (m, S) block by shifted
-        CholeskyQR, `passes` times, with a diagonal shift of shift_rel times
-        the Gram's mean diagonal."""
-        q = y
-        for _ in range(passes):
-            g = _gram_sk(q, q)
-            g = 0.5 * (g + g.transpose(-1, -2).conj())
-            shift = shift_rel * torch.mean(
-                torch.abs(torch.diagonal(g, dim1=-2, dim2=-1).real), dim=-1)
-            q = _mix_sk(q, cuda_linalg.cholqr_rinv(g, shift))
-        return q
+    def orth_pass(q, shift_rel):
+        """One shifted CholeskyQR pass over the k columns of every (m, S)
+        block, with a diagonal shift of shift_rel times the Gram's mean
+        diagonal.  The caller rebinds its name to the result, which frees
+        the input."""
+        g = _gram_sk(q, q)
+        g = 0.5 * (g + g.transpose(-1, -2).conj())
+        shift = shift_rel * torch.mean(
+            torch.abs(torch.diagonal(g, dim1=-2, dim2=-1).real), dim=-1)
+        return _mix_sk(q, cuda_linalg.cholqr_rinv(g, shift))
 
     x0 = (omega[:, None, :] * mk).to(torch.complex64)
     # Power iterations: one CholeskyQR pass each — the basis only has to
@@ -238,11 +246,14 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     # llckbdm_tpu/solver/kbdm.py:390), in float32.
     y = apply_op(x0)                          # (..., m, S, k)
     for _ in range(cfg.subspace_iters):
-        q = orth_sk(y, 1, 1e-4)
-        y = apply_op(q.conj())
+        y = orth_pass(y, 1e-4)
+        y = apply_op(y.conj())
     if _stop == "powiter":
         return y
-    q = orth_sk(y, cfg.final_orth_passes, 3e-6)
+    q = y
+    del y
+    for _ in range(cfg.final_orth_passes):
+        q = orth_pass(q, 3e-6)
     if _stop == "basis":
         return q
 
@@ -257,6 +268,7 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
         return w, sig
     w_p = w[..., :p]
     u_p = _mix_sk(q, w_p)                     # (..., m, S, p)
+    del q
     sig_p = sig[..., :p]                      # (..., S, p)
     keep_s = sig_p > sig[..., :1] * cfg.rank_tol
     s_isq = torch.where(keep_s, torch.rsqrt(torch.clamp(sig_p, min=1e-30)), 0.0)
@@ -267,7 +279,9 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     #   (U1 x)_{m_s-1} = sum_{j<m_s} c[m_s+j] x_j  (one new row),
     # and U0 conj(u_p) = t0 conj(w_p) already exists.
     t0w = _mix_sk(t0, w_p.conj())             # = U0 conj(u_p)
+    del t0
     t = torch.nn.functional.pad(t0w[..., 1:, :, :], (0, 0, 0, 0, 0, 1))
+    del t0w
     idx = np.empty((m_max, ns), np.int64)
     for s_i, m_s in enumerate(m_values):
         idx[:, s_i] = np.minimum(m_s + np.arange(m_max), n - 1)
@@ -277,7 +291,7 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     for s_i, m_s in enumerate(m_values):
         row_sel[m_s - 1, s_i, 0] = 1.0
     rs = torch.as_tensor(row_sel, device=dev)
-    t = t * mk + rs * corr[..., None, :, :]
+    t.mul_(mk).add_(rs * corr[..., None, :, :])
     ut = _gram_sk(u_p, t)                     # (..., S, p, p)
     ut = ut * (s_isq[..., :, None] * s_isq[..., None, :])
     ut = 0.5 * (ut + ut.transpose(-1, -2))

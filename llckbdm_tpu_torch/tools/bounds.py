@@ -48,8 +48,8 @@ class Bound(NamedTuple):
     by: str             # "operations" or "bytes": the term that binds
 
 
-def bound(flops: float, nbytes: float) -> Bound:
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> Bound:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     by = "operations" if t_ops >= t_bytes else "bytes"
     return Bound(float(flops), float(nbytes), 1e3 * max(t_ops, t_bytes), by)
 

@@ -1,7 +1,10 @@
-"""Milliseconds per call of GPU work, by CUDA events over many launches."""
+"""Milliseconds per call of GPU work: by CUDA events over many launches
+(kernels), or by the host clock around a synchronise (whole steps)."""
 from __future__ import annotations
 
 import math
+import subprocess
+import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -60,3 +63,32 @@ def cuda_ms(fn: Callable[[], object]) -> Timing:
     calls = min(WINDOW_CALLS, max(1, math.ceil(WINDOW_MS / first)))
     times = sorted(window(calls) for _ in range(WINDOWS))
     return Timing(times[WINDOWS // 2], times[0], times[-1], calls, WINDOWS)
+
+
+def host_ms(fn: Callable[[], object], device, reps: int = 3) -> Timing:
+    """Time ``fn`` by the host clock: one warm-up call, then the median of
+    ``reps`` calls, each ending in ``torch.cuda.synchronize()`` on a CUDA
+    device (the measure of a step that runs many kernels and host work)."""
+    cuda = torch.device(device).type == "cuda"
+
+    def once() -> float:
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    once()
+    times = sorted(once() for _ in range(reps))
+    return Timing(times[reps // 2], times[0], times[-1], 1, reps)
+
+
+def device_label(device) -> str:
+    """The device a number was measured on: the card's name and power limit
+    as ``nvidia-smi`` gives them, or the CPU's (whose times are no card's)."""
+    if torch.device(device).type != "cuda":
+        return "cpu (plain versions; no card)"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]

@@ -345,6 +345,33 @@ def test_default_sketch_is_the_hosts_draw(cuda):
 
 
 @pytest.mark.cuda
+def test_sweep_peak_memory_is_bounded(cuda):
+    """One kbdm_sweep pass over V=256 voxels at k=40 (the north star's
+    m = 120..256 step 4, S=35) holds at most 6 copies of its (V, m_max, S, k)
+    complex64 basis plus the (V, m_max, m_max) Hankel operator above its
+    input: each block is freed after its last reader (it held ~8 before)."""
+    cfg = KbdmConfig(p=32)
+    m_values = tuple(range(120, 257, 4))
+    v, m_max, k = 256, max(m_values), cfg.p + cfg.oversample
+    rng = np.random.default_rng(0)
+    c = torch.as_tensor(_crandn(rng, v, 512), device=cuda)
+    kbdm_sweep(c[:2], DWELL, m_values, cfg)          # loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lines = kbdm_sweep(c, DWELL, m_values, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    basis = v * m_max * len(m_values) * k * 8
+    hankel = v * m_max * m_max * 8
+    assert lines.mask.shape == (v, len(m_values), cfg.p)
+    assert peak <= 6 * basis + hankel, (
+        f"peak {peak / basis:.2f} basis copies (Hankel "
+        f"{hankel / basis:.2f})")
+
+
+@pytest.mark.cuda
 def test_kernels_at_config2_widths_match_plain(cuda):
     """k = 32 and n = 24 on the brain sweep's own matrices: eig_cs on its
     reduced matrices (matched eigenvalues, 3e-3 of |A|_F, where both

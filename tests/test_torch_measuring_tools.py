@@ -1,0 +1,115 @@
+"""The port's measuring tools (llckbdm_tpu_torch.tools: ablate_sweep,
+bench_fft_hankel, tune_sweeps, noise_gate_sweep, scaling_bench), counterparts
+of the JAX package's tools of the same names, run through their ``--cpu``
+entry points at tiny sizes on the plain versions.  Their times are the
+CPU's and are not checked; what is checked is that each exits 0, refuses to
+run without a card unless asked for the CPU, and what each computes that
+does not depend on a clock: the stage model, the gates, the collective
+counts."""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from llckbdm_tpu_torch.solver.kbdm import KbdmConfig
+from llckbdm_tpu_torch.tools import (ablate_sweep, bench_fft_hankel, bounds,
+                                     noise_gate_sweep, scaling_bench,
+                                     tune_sweeps)
+
+torch.set_num_threads(1)
+TOOLS = (ablate_sweep, bench_fft_hankel, tune_sweeps, noise_gate_sweep,
+         scaling_bench)
+
+
+@pytest.mark.parametrize("tool", TOOLS, ids=lambda t: t.__name__.split(".")[-1])
+def test_tool_needs_a_card_without_cpu(tool):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert tool.main([]) == 2
+
+
+def test_ablate_sweep_cpu(capsys):
+    assert ablate_sweep.main(["--cpu", "--voxels", "1", "--reps", "3"]) == 0
+    out = capsys.readouterr().out
+    for stage in ablate_sweep.STAGES:
+        assert f"\n{stage} " in out
+
+
+def test_ablate_stage_model_is_the_sweeps_work():
+    """The model's operations at the north star's shapes: the Hankel
+    operator is only bytes, each power-iteration apply 8 m^2 S k V flops,
+    and the kernels' stages are tools.bounds' counts."""
+    v, cfg = 2048, KbdmConfig(p=16)
+    model = ablate_sweep.stage_model(v, 512, tuple(range(120, 257, 4)), cfg)
+    assert list(model) == list(ablate_sweep.STAGES)
+    s, m, k = 35, 256, 24
+    assert model["hankel"] == (0.0, v * 512 * 8 + v * m * m * 8)
+    apply = 8.0 * m * m * s * k * v
+    assert model["powiter"][0] > 3 * apply
+    assert model["takagi"][0] == bounds.gram_svd(s * v, k, 7).flops
+    assert model["eig"][0] == bounds.eig_cs(s * v, 16, 10).flops
+    assert all(f >= 0 and b > 0 for f, b in model.values())
+
+
+def test_ablate_scalarize_reduces_every_output():
+    c = torch.tensor([1 + 2j, 3 - 1j], dtype=torch.complex64)
+    assert ablate_sweep.scalarize(c).item() == 5.0
+    assert ablate_sweep.scalarize((c, torch.ones(3))).item() == 8.0
+
+
+def test_bench_fft_hankel_cpu():
+    res = bench_fft_hankel.run((4, 64, 32, 8), "cpu", verbose=False)
+    assert set(res) == {"dense_f32", "dense_bf16", "fft"}
+    # float32 applies to complex64 rounding, bf16 to its 8-bit mantissa
+    assert res["dense_f32"]["rel_err"] < 1e-6
+    assert res["fft"]["rel_err"] < 1e-6
+    assert 1e-4 < res["dense_bf16"]["rel_err"] < 2e-2
+    assert bench_fft_hankel.main(["--cpu", "--shape", "config2", "--voxels",
+                                  "2", "--n", "64", "--m", "32", "--cols",
+                                  "4"]) == 0
+
+
+def test_bench_fft_hankel_bounds_at_the_pipeline_shape():
+    """The dense apply at (V=2048, m=256, J=840) is 9.0e11 flops, 13.5 ms
+    at 67 TFLOP/s."""
+    b = bench_fft_hankel.apply_bound("dense_f32", 2048, 512, 256, 840)
+    assert b.flops == 8.0 * 256 ** 2 * 840 * 2048 and b.by == "operations"
+    assert abs(b.ms - 13.46) < 0.01
+
+
+def test_tune_sweeps_cpu():
+    res = tune_sweeps.run("cpu", counter_voxels=1, time_voxels=1,
+                          sweeps=(10,), pairs=((10, 7),), verbose=False)
+    assert res["ok"] and res["smallest_passing"] == (10, 7)
+    assert res["counter"][10] < tune_sweeps.COUNTER_GATE
+    g = res["gates"][(10, 7)]
+    assert g["noiseless_iters3"] < 1e-8 and g["noisy_iters6"] < 1e-8
+    # the entry point, on the counter alone (no pairs)
+    assert tune_sweeps.main(["--cpu", "--counter-voxels", "1", "--sweeps",
+                             "10", "--pairs"]) == 0
+
+
+def test_noise_gate_sweep_cpu():
+    assert noise_gate_sweep.main(["--cpu", "--voxels", "1", "--levels",
+                                  "1e-4", "1e-2"]) == 0
+
+
+def test_scaling_bench_counts_collectives(tmp_path):
+    """The data-parallel fit issues no collective on any rank; the
+    time-sharded refine issues one all-reduce per Gauss-Newton iteration
+    and its control none.  Written to --out, printed otherwise."""
+    out = tmp_path / "scaling.json"
+    assert scaling_bench.main(["--cpu", "--ranks", "1", "2", "--voxels", "2",
+                               "--out", str(out)]) == 0
+    res = json.loads(out.read_text())
+    assert [r["ranks"] for r in res["dp_scaling"]] == [1, 2]
+    for row in res["dp_scaling"]:
+        assert row["collectives"] == [0] * row["ranks"]
+        assert row["backend"] == "gloo"
+    probe = res["overlap_probe"]
+    assert probe["mesh"] == {"data": 1, "time": 2}
+    iters = scaling_bench.OVERLAP_RCFG.iters
+    assert probe["with_collectives"] == [{"all_reduce": iters}] * 2
+    assert probe["without_collectives"] == [{}, {}]
+    assert np.isfinite(probe["unhidden_ms"])

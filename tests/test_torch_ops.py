@@ -19,9 +19,11 @@ import llckbdm_tpu as lt
 import llckbdm_tpu_torch as lp
 from llckbdm_tpu.ops import dbscan as jdb
 from llckbdm_tpu.ops.cplx import from_np, to_np
+from llckbdm_tpu.ops import hankel as jhankel
 from llckbdm_tpu.ops.hankel import hankel_matrices as jax_hankel
 from llckbdm_tpu.oracle import reference as oracle
 from llckbdm_tpu_torch.ops import dbscan as tdb
+from llckbdm_tpu_torch.ops import hankel as thankel
 from llckbdm_tpu_torch.ops.hankel import hankel_matrices
 from llckbdm_tpu_torch.pipeline.llckbdm import transform_line_lists
 
@@ -62,6 +64,71 @@ def test_hankel_matches_jax():
                                                             shift)))
     with pytest.raises(ValueError):
         hankel_matrices(torch.as_tensor(c), 21)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 180, 256, 512])
+def test_fft_length_matches_jax(m):
+    assert thankel.fft_length(m) == jhankel.fft_length(m)
+
+
+def _crand(rng, *shape):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("m,n,shift,n_fft", [(16, 40, 0, None),
+                                             (16, 40, 3, None),
+                                             (16, 40, 0, 64),
+                                             (180, 512, 1, None)])
+def test_hankel_fft_spectrum_matches_jax(m, n, shift, n_fft):
+    """The spectrum of the signal window at complex64 tolerance (the two
+    FFT libraries round differently), with and without shift and n_fft."""
+    c = _crand(np.random.default_rng(m + shift), 3, n)
+    got = thankel.hankel_fft_spectrum(torch.as_tensor(c), m, shift,
+                                      n_fft).numpy()
+    want = np.asarray(jhankel.hankel_fft_spectrum(from_np(c), m, shift,
+                                                  n_fft))
+    assert got.shape == want.shape and got.dtype == np.complex64
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,n,shift,j", [(16, 40, 0, 5), (16, 40, 3, 5),
+                                         (180, 512, 0, 24),
+                                         (180, 512, 1, 7)])
+def test_hankel_apply_fft_matches_jax_and_dense(m, n, shift, j):
+    """hankel_apply_fft against the JAX function and against the dense
+    hankel_matrices(c, m, shift) @ x in float64, at complex64 tolerance
+    (2e-6 of the largest entry), with and without shift."""
+    rng = np.random.default_rng(m * 7 + shift)
+    c, x = _crand(rng, 2, n), _crand(rng, 2, m, j)
+    spec = thankel.hankel_fft_spectrum(torch.as_tensor(c), m, shift)
+    got = thankel.hankel_apply_fft(spec, torch.as_tensor(x), m).numpy()
+    jspec = jhankel.hankel_fft_spectrum(from_np(c), m, shift)
+    want = to_np(jhankel.hankel_apply_fft(jspec, from_np(x), m))
+    dense = (hankel_matrices(torch.as_tensor(c.astype(np.complex128)), m,
+                             shift).numpy() @ x.astype(np.complex128))
+    scale = np.abs(dense).max()
+    assert got.shape == (2, m, j) and got.dtype == np.complex64
+    np.testing.assert_allclose(got, dense, rtol=0, atol=2e-6 * scale)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6 * scale)
+
+
+def test_hankel_fft_spectrum_raises_where_jax_zero_pads():
+    """A signal shorter than the operator's 2m - 1 entries (after shift)
+    raises ValueError.  The JAX function zero-pads it silently and applies
+    an operator the signal does not define: this departure from the
+    reference is deliberate (ADVICE.md).  An n_fft below 2m - 1, which
+    would wrap, raises too."""
+    c = _crand(np.random.default_rng(0), 2, 40)
+    jhankel.hankel_fft_spectrum(from_np(c[:, :30]), 16)     # pads, no error
+    with pytest.raises(ValueError, match="need n >= 2m - 1 \\+ shift"):
+        thankel.hankel_fft_spectrum(torch.as_tensor(c[:, :30]), 16)
+    with pytest.raises(ValueError, match="need n >= 2m - 1"):
+        thankel.hankel_fft_spectrum(torch.as_tensor(c), 16, shift=10)
+    with pytest.raises(ValueError, match="would wrap"):
+        thankel.hankel_fft_spectrum(torch.as_tensor(c), 16, n_fft=16)
+    thankel.hankel_fft_spectrum(torch.as_tensor(c[:, :31]), 16)  # 2m - 1
 
 
 def _pooled_features(rng, b, n):
