@@ -29,11 +29,19 @@
    printed in the order a redesign should take them.
 3. The main path at the bench's north-star size (V=2048 voxels, N=512,
    m = 120..256 step 4, p=16): llc_kbdm_fit, then refine_lines on the top
-   16 clusters with 6 Gauss-Newton iterations.  Every kernel must have been
-   launched by that run and no plain version handed a CUDA tensor.
+   16 clusters with 6 Gauss-Newton iterations, at the card's default, the
+   bfloat16 power iterations (KbdmConfig.subspace_bf16, the JAX package's
+   accelerator default; the branch is printed).  Every kernel must have
+   been launched by that run and no plain version handed a CUDA tensor.
 4. Gates: the Jacobi off-diagonal counter below 1e-2 on 32 voxels, and the
    refined lines within 1e-8 of the float64 oracle's Gauss-Newton polish on
-   the 8 voxels with the largest last GN step.  Then one more run of the
+   the 8 voxels with the largest last GN step.  The same path and gates
+   once more on the float32 power iterations (subspace_bf16=False), with
+   cholqr_rinv held to its contract on that branch's Grams too; both
+   branches' fit and refine ms and peak memory are printed beside the
+   card's name and power limit.  A record, not a gate: the north-star
+   voxels whose float32 power iterations go non-finite at the JAX
+   package's 3e-6 shift (the port keeps 1e-4).  Then one more run of the
    main path under torch.profiler: the device's busy time, its idle share
    of the unprofiled run's wall time, the largest consumers, and each
    hand-written kernel's device time per launch (the 32 x 32 Gauss-Newton
@@ -58,7 +66,10 @@
    3 (eig_cs n=24, gram_svd and cholqr_rinv k=32, chol_solve 24, 48 and 64)
    on a batch of 2048, against its plain version, timed beside its bound
    and library call.
-   Then the wide phase: the north star at KbdmConfig(p=32) (k=40) and
+   Then the wide phase, on the float32 power iterations (WIDE_BF16: past
+   p=16 the JAX package's accelerator algorithm, which the card's default
+   runs, loses the noisy north star's lines; a record prints the default
+   at p = 24, 32 and 56): the north star at KbdmConfig(p=32) (k=40) and
    KbdmConfig(p=56) (k=64, the kernels' limit, eig_cs n=56), each driven
    once with the launch counts set to 0 before and read after (every
    main-path kernel launched, no plain version on a CUDA tensor), with its
@@ -111,14 +122,21 @@
    every main-path kernel launched, no plain version on a CUDA tensor);
    ``dryrun_multichip(8)``, eight gloo ranks on the one card (mesh data=4 x
    time=2), refined (8, 4), every rank's launches read; the stage profiler
-   ``tools.ablate_sweep`` at V=2048, whose whole-sweep time must lie within
-   10% of kbdm_sweep's timed in the same call; the implicit FFT Hankel
+   ``tools.ablate_sweep`` at V=2048 on each power-iteration branch, whose
+   whole-sweep time must lie within 10% of kbdm_sweep's timed in the same
+   call; the implicit FFT Hankel
    apply against the dense one (2e-6) and ``tools.bench_fft_hankel`` at
    its two shapes; ``tools.tune_sweeps``, ``tools.noise_gate_sweep`` and
    ``tools.scaling_bench`` (1, 2 and 4 ranks of the one card) at their
    defaults, each failing the script where it prints FAIL at the
    production defaults, the data-parallel fit issuing no collective and
-   the time-sharded refine one all-reduce per GN iteration.
+   the time-sharded refine one all-reduce per GN iteration; then the three
+   tools ported last: ``tools.precision_gate`` at its defaults (the two
+   gates and the V=512 sweep at mxu_precision "highest" and "high", on
+   both power-iteration branches; failing the script only where the
+   default fails), ``tools.config5_run`` on 8,192 voxels run twice into one
+   temporary --out (the rerun resumes every shard and gathers bit for
+   bit) and ``tools.trace_capture`` of one fit at V=256.
 
 The float64 oracle is the port's own (``llckbdm_tpu_torch/oracle.py``,
 numpy and scipy only): nothing of JAX or of the JAX package is loaded.  The
@@ -147,6 +165,7 @@ M_VALUES = tuple(range(120, 257, 4))
 REFINE_CLUSTERS, GN_ITERS, GATE_VOXELS = 16, 6, 8
 MAIN_KERNELS = ("eig_cs", "gram_svd", "cholqr_rinv", "chol_solve")
 GRID_SIDE, GRID_SHARD, GRID_DELETE = 256, 2048, 3
+CONFIG5_VOXELS = 8192       # tools.config5_run's grid, cut to 4 shards
 BRAIN_N, BRAIN_DWELL, SPEC_GN_ITERS, SPEC_BATCH = 2048, 2.5e-4, 10, 2048
 # the wide phase: KbdmConfig.p past one warp's 32 lanes (k = p + 8 = 40 and
 # 64, the kernels' limit); the kernels alone at these widths
@@ -154,6 +173,15 @@ WIDE_P, WIDE_K, WIDE_N = (32, 56), (40, 48, 64), (40, 56)
 # the wide phase's peak device memory at p=56: one pass of the sweep over
 # the 2048 voxels at k=64, whose (V, m, S, k) basis is 8.75 GiB a copy
 WIDE_PEAK_GIB = 60.0
+# The wide phase runs the float32 power iterations: past p=16 the JAX
+# package's TPU algorithm (both its branches: bfloat16, and float32 at a
+# 3e-6 shift) leaves the reduced matrices of the noisy north star
+# unconverged and loses the genuine lines, on the card as in the JAX package
+# itself run on the CPU (ROADMAP.md section 3; wide_default_record prints
+# the default branch there).  The port's float32 branch (1e-4) holds.
+WIDE_BF16 = False
+# p of the record of the default branch past p=16 (24: KbdmConfig's default)
+RECORD_P = (24, 32, 56)
 # GN iterations that must polish a wide voxel that misses the gate at
 # GN_ITERS (as the oracle's own polish takes 20)
 POLISH_ITERS = 20
@@ -180,31 +208,6 @@ LIBRARY = {
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def make_grid_signals(v: int, chunk: int = 4096):
-    """tools/config5_run.py:29-52's signals, the same draws from seed 0: the
-    config-1 lines with per-voxel jitter of amplitude and frequency, plus
-    complex noise 1e-4.  The lines are summed ``chunk`` voxels at a time;
-    the vectorised form holds a (v, 5, N) complex array, ~2.7 GB at
-    v = 65,536."""
-    rng = np.random.default_rng(0)
-    amp = BASE_LINES[:, 0] * (1.0 + rng.normal(scale=0.05, size=(v, 5)))
-    t2 = np.broadcast_to(BASE_LINES[:, 1], (v, 5))
-    freq = BASE_LINES[:, 2] + rng.normal(scale=2.0, size=(v, 5))
-    ph = np.broadcast_to(BASE_LINES[:, 3], (v, 5))
-    noise = 1e-4 * (rng.standard_normal((v, N))
-                    + 1j * rng.standard_normal((v, N)))
-    t = np.arange(N) * DWELL
-    sigs = np.empty((v, N), np.complex128)
-    for s in range(0, v, chunk):
-        z = (2j * np.pi * freq[s:s + chunk, :, None]
-             - 1.0 / t2[s:s + chunk, :, None]) * t
-        sigs[s:s + chunk] = np.sum(amp[s:s + chunk, :, None]
-                                   * np.exp(1j * ph[s:s + chunk, :, None] + z),
-                                   axis=1)
-    sigs += noise
-    return sigs, np.stack([amp, t2, freq, ph], axis=-1)
 
 
 def rows_of(z, d, mask) -> np.ndarray:
@@ -321,16 +324,23 @@ def production_gram_checks(c32: torch.Tensor, dwell: float, m_values, kcfg,
     size of the shift, and another summation order changes them; so the two
     are not compared entry by entry but each held to the contract R^-H (G +
     shift I) R^-1 = I in float64, to 0.2 k eps / shift_rel (the bound of the
-    rank-5 tests in tests/test_torch_kernels.py), with finite outputs."""
+    rank-5 tests in tests/test_torch_kernels.py), with finite outputs.  On
+    the bfloat16 branch the power iterations' Grams are those of its
+    upcast blocks, which ``_stop="powiter"`` returns and which are formed
+    here as the sweep forms them."""
     from llckbdm_tpu_torch import kbdm_sweep
     from llckbdm_tpu_torch.ops import cuda_linalg
+    from llckbdm_tpu_torch.solver import kbdm
 
     k = kcfg.p + kcfg.oversample
+    powiter_shift = (kbdm.BF16_POWITER_SHIFT
+                     if kbdm.bf16_power_iterations(c32, kcfg)
+                     else kbdm.F32_POWITER_SHIFT)
     cases = (
-        ("power iteration 2", 1e-4, "powiter",
+        ("power iteration 2", powiter_shift, "powiter",
          dataclasses.replace(kcfg, subspace_iters=kcfg.subspace_iters - 1)),
-        ("final pass 1", 3e-6, "powiter", kcfg),
-        ("final pass 2", 3e-6, "basis",
+        ("final pass 1", kbdm.FINAL_SHIFT, "powiter", kcfg),
+        ("final pass 2", kbdm.FINAL_SHIFT, "basis",
          dataclasses.replace(kcfg, final_orth_passes=1)),
     )
     out = {}
@@ -612,7 +622,8 @@ def spec_kernel_checks(oracle) -> dict:
 
 
 def wide_phase(sigs, truths, c32, c64, cfg, rcfg) -> dict:
-    """The north star at the widths past one warp: for each p of WIDE_P
+    """The north star at the widths past one warp, on the float32 power
+    iterations (WIDE_BF16): for each p of WIDE_P
     (KbdmConfig(p=32): k = 40, eig_cs n = 32; KbdmConfig(p=56): k = 64, the
     kernels' limit, n = 56), llc_kbdm_fit and refine_lines on the top 16
     clusters, in one pass of the VOXELS voxels, driven once with the launch
@@ -641,7 +652,8 @@ def wide_phase(sigs, truths, c32, c64, cfg, rcfg) -> dict:
     out = {}
     voxels_for = -(-SPEC_BATCH // len(M_VALUES))    # voxels of SPEC_BATCH entries
     for p in WIDE_P:
-        wcfg = dataclasses.replace(cfg, kbdm=KbdmConfig(p=p))
+        wcfg = dataclasses.replace(cfg, kbdm=KbdmConfig(
+            p=p, subspace_bf16=WIDE_BF16))
 
         def drive():
             t0 = time.perf_counter()
@@ -741,13 +753,42 @@ def wide_phase(sigs, truths, c32, c64, cfg, rcfg) -> dict:
         del top, refined
 
     def sweep_inputs(p, stop, n):
-        x = kbdm_sweep(c32[:voxels_for], DWELL, cfg.m_values, KbdmConfig(p=p),
-                       _stop=stop)
+        x = kbdm_sweep(c32[:voxels_for], DWELL, cfg.m_values,
+                       KbdmConfig(p=p, subspace_bf16=WIDE_BF16), _stop=stop)
         return x.reshape(-1, n, n)[:SPEC_BATCH].contiguous()
 
     inputs = {"m_small": {k: sweep_inputs(k - 8, "m_small", k) for k in WIDE_K},
               "reduced": {n: sweep_inputs(n, "reduced", n) for n in WIDE_N}}
     return out, inputs
+
+
+def wide_default_record(sigs, truths, c32, cfg) -> dict:
+    """A record, not a gate: the north star at each p of RECORD_P on the
+    card's default, the bfloat16 power iterations (the JAX package's
+    accelerator algorithm): how many of the VOXELS voxels keep a
+    consolidated line within 1 Hz of each of their five true lines, and
+    the Jacobi counter on 32 voxels."""
+    from llckbdm_tpu_torch import KbdmConfig, llc_kbdm_fit
+
+    out = {}
+    for p in RECORD_P:
+        kcfg = KbdmConfig(p=p)
+        cons, _, _, _ = llc_kbdm_fit(c32, DWELL, dataclasses.replace(
+            cfg, kbdm=kcfg))
+        f = cons.frequency[:, :REFINE_CLUSTERS].cpu().numpy()
+        live = cons.mask[:, :REFINE_CLUSTERS].cpu().numpy() > 0.5
+        near = (np.abs(f[:, None, :] - truths[:, :, 2, None]) < 1.0) \
+            & live[:, None, :]
+        kept = int(near.any(-1).all(-1).sum())
+        counter = jacobi_counter(c32[:32], DWELL, cfg.m_values, kcfg)
+        print(f"record (not a gate): the north star at p={p} on the default "
+              f"bfloat16 power iterations keeps all five lines on {kept} of "
+              f"{len(truths)} voxels; Jacobi off-diagonal (32 voxels) "
+              f"{counter:.3e}", flush=True)
+        out[f"p{p}"] = dict(voxels_with_five_lines=kept,
+                            jacobi_offdiag_rel=counter)
+        del cons
+    return out
 
 
 def wide_kernel_checks(inputs: dict) -> dict:
@@ -1223,6 +1264,7 @@ def grid_phase(cfg, rcfg) -> dict:
     """GridRunner at config-5 size, then a resume after deleting shards."""
     from llckbdm_tpu_torch.ops import _build
     from llckbdm_tpu_torch.parallel import GridRunner
+    from llckbdm_tpu_torch.tools.config5_run import make_grid_signals
 
     v = GRID_SIDE * GRID_SIDE
     t0 = time.perf_counter()
@@ -1639,29 +1681,187 @@ def tools_phase() -> dict:
     return out
 
 
+def precision_tools_phase() -> dict:
+    """The three tools ported last, on the card: precision_gate at its
+    defaults (the four (mxu_precision, subspace_bf16) settings), raising
+    only where the default ("highest", bfloat16) prints FAIL;
+    config5_run on CONFIG5_VOXELS voxels, twice into one temporary --out
+    (the first run computes every shard, the rerun resumes every shard and
+    gathers bit for bit); trace_capture of one fit at V=256 (a non-empty
+    trace and top table).  Each driven with the launch counts set to 0
+    before and read after (every main-path kernel launched, no plain
+    version on a CUDA tensor)."""
+    from llckbdm_tpu_torch.tools import config5_run, precision_gate, trace_capture
+
+    out = {}
+    t0 = time.perf_counter()
+    launches, prec = counted_path("precision_gate", lambda: precision_gate.run(
+        DEVICE))
+    check(prec["ok"], "precision_gate: FAIL at the default (mxu_precision "
+          "'highest', bfloat16 power iterations)")
+    out["precision_gate"] = dict(
+        gates={f"{p},{'bfloat16' if b else 'float32'}": g
+               for (p, b), g in prec["gates"].items()},
+        launches=launches, wall_s=time.perf_counter() - t0)
+    print(f"precision_gate: {out['precision_gate']['wall_s']:.2f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        launches, first = counted_path("config5_run", lambda: config5_run.run(
+            CONFIG5_VOXELS, GRID_SHARD, d, DEVICE))
+        again = config5_run.run(CONFIG5_VOXELS, GRID_SHARD, d, DEVICE)
+    same = first["grid"].keys() == again["grid"].keys() and all(
+        np.array_equal(first["grid"][k], again["grid"][k])
+        for k in first["grid"])
+    print(f"config5_run: {first['total']} shards of {GRID_SHARD}; the rerun "
+          f"into the same --out resumed {again['resumed']} and computed "
+          f"{again['computed']}; gather bitwise equal: {same}", flush=True)
+    check(first["computed"] == first["total"] and again["computed"] == 0
+          and again["resumed"] == again["total"] and same,
+          "config5_run: the rerun did not resume every shard bit for bit")
+    out["config5_run"] = dict(
+        {k: first[k] for k in ("total", "computed", "wall_s", "fits_per_s",
+                               "gate")},
+        rerun_resumed=again["resumed"], rerun_computed=again["computed"],
+        launches=launches, wall_s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        launches, trace = counted_path("trace_capture", lambda: (
+            trace_capture.run(256, 1, d, device=DEVICE, top=12)))
+        size = pathlib.Path(trace["trace"]).stat().st_size
+    check(trace["rows"] and size > 0, "trace_capture: an empty trace")
+    out["trace_capture"] = dict(total_ms=trace["total_ms"], trace_bytes=size,
+                                top=trace["rows"][:12], launches=launches,
+                                wall_s=time.perf_counter() - t0)
+    print(f"trace_capture: {out['trace_capture']['wall_s']:.2f} s",
+          flush=True)
+    return out
+
+
+def north_star(sigs, truths, c32, c64, cfg, rcfg) -> dict:
+    """The main path at the north star: llc_kbdm_fit, then refine_lines on
+    the top 16 clusters, once to warm up and once timed with the launch
+    counts set to 0 just before and read just after (every main-path
+    kernel launched, no plain version on a CUDA tensor).  Checked: shapes,
+    finite refined lines, >= 5 a voxel; the Jacobi counter below 1e-2 on 32
+    voxels and the 1e-8 oracle gate on the 8 voxels with the largest last
+    GN step.  Returns the times, peak, launches, gates, the outputs and
+    the path itself (``drive``)."""
+    from llckbdm_tpu_torch import (LineList, line_list_to_np, llc_kbdm_fit,
+                                   refine_lines, refined_to_np)
+    from llckbdm_tpu_torch.ops import _build
+    from llckbdm_tpu_torch.solver.kbdm import bf16_power_iterations
+
+    branch = ("bfloat16" if bf16_power_iterations(c32, cfg.kbdm)
+              else "float32")
+
+    def top(lines):
+        return LineList(*(x[..., :REFINE_CLUSTERS] for x in lines))
+
+    def drive():
+        cons, pooled, counts, _ = llc_kbdm_fit(c32, DWELL, cfg)
+        torch.cuda.synchronize()
+        t_mid = time.perf_counter()
+        refined = refine_lines(c64, top(cons), DWELL, rcfg)
+        torch.cuda.synchronize()
+        return cons, pooled, counts, refined, t_mid
+
+    drive()                                       # warm-up (cuBLAS, allocator)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches, (cons, pooled, counts, refined, t_mid) = counted_path(
+        f"main path, {branch} power iterations", drive)
+    t_end = time.perf_counter()
+    t_fit, t_refine = t_mid - t0, t_end - t_mid
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"main path V={VOXELS}, {branch} power iterations: fit "
+          f"{t_fit * 1e3:.1f} ms, refine {t_refine * 1e3:.1f} ms, "
+          f"{VOXELS / (t_fit + t_refine):.1f} refined fits/s; peak "
+          f"{peak_gb:.2f} GiB", flush=True)
+    check(cons.amplitude.shape == (VOXELS, cfg.max_clusters),
+          f"consolidated shape {tuple(cons.amplitude.shape)}")
+    check(refined.z.shape == (VOXELS, REFINE_CLUSTERS)
+          and refined.z.dtype == torch.complex128, "refined shape or dtype")
+    live = refined.mask > 0.5
+    check(bool(torch.isfinite(refined.z[live]).all()
+               and torch.isfinite(refined.d[live]).all()),
+          f"{branch}: non-finite refined lines")
+    n_lines = live.sum(-1)
+    check(bool((n_lines >= 5).all()), f"{branch}: a voxel lost a genuine line")
+    print(f"refined lines per voxel: min {n_lines.min().item()}, max "
+          f"{n_lines.max().item()}; cluster counts of voxel 0 "
+          f"{counts[0].tolist()}")
+
+    offdiag = jacobi_counter(c32[:32], DWELL, cfg.m_values, cfg.kbdm)
+    print(f"Jacobi off-diagonal on production matrices (32 voxels, {branch}): "
+          f"{offdiag:.3e} (< 1e-2)")
+    check(offdiag < 1e-2, f"{branch}: Jacobi did not converge: {offdiag:.3e}")
+    gn = refined.gn_step.cpu().numpy()
+    worst_voxels = largest_step_voxels(gn)
+    errs = gate_errors(
+        worst_voxels, sigs, truths,
+        lambda i: line_list_to_np(LineList(*(x[i] for x in top(cons)))),
+        lambda i: refined_to_np(refined._replace(
+            z=refined.z[i], d=refined.d[i], mask=refined.mask[i]), DWELL))
+    gate = max(errs)
+    print(f"{branch}: refined vs float64 oracle GN on voxels {worst_voxels} "
+          f"(largest last GN step {gn[worst_voxels[0]].max():.3e}): max err "
+          f"{gate:.3e} (< 1e-8); per voxel {errs}", flush=True)
+    check(gate < 1e-8, f"{branch}: refined lines missed the 1e-8 oracle "
+          f"gate: {gate:.3e}")
+    return {"branch": branch, "fit_ms": t_fit * 1e3,
+            "refine_ms": t_refine * 1e3, "peak_gib": peak_gb,
+            "launches": launches, "jacobi_offdiag_rel": offdiag,
+            "gate": gate, "gate_voxels": worst_voxels,
+            "refined_lines_min_max": [n_lines.min().item(),
+                                      n_lines.max().item()],
+            "cons": cons, "pooled": pooled, "counts": counts,
+            "refined": refined, "drive": drive}
+
+
+def f32_shift_record(c32, kcfg) -> dict:
+    """The float32 power iterations at the JAX package's float32 shift
+    (3e-6, llckbdm_tpu/solver/kbdm.py:345-348) instead of the port's 1e-4:
+    the north-star voxels whose last power-iteration block is not finite.
+    A record of why the port keeps 1e-4 (solver/kbdm.py), not a gate."""
+    from llckbdm_tpu_torch import kbdm_sweep
+    from llckbdm_tpu_torch.solver import kbdm
+
+    keep = kbdm.F32_POWITER_SHIFT
+    kbdm.F32_POWITER_SHIFT = 3e-6
+    try:
+        y = kbdm_sweep(c32, DWELL, M_VALUES, kcfg, _stop="powiter")
+    finally:
+        kbdm.F32_POWITER_SHIFT = keep
+    bad = ~torch.isfinite(torch.view_as_real(y)).reshape(y.shape[0], -1).all(-1)
+    entries = ~torch.isfinite(torch.view_as_real(y)).flatten(-2).all(-1)
+    voxels = torch.nonzero(bad).flatten().tolist()
+    per_entry = {v: torch.nonzero(entries[v].any(0)).flatten().tolist()
+                 for v in voxels}
+    print(f"float32 power iterations at a 3e-6 shift: {len(voxels)} of "
+          f"{y.shape[0]} voxels non-finite (the port keeps 1e-4): voxels "
+          f"{voxels}; their sweep entries {per_entry}", flush=True)
+    return {"shift": 3e-6, "nonfinite_voxels": voxels,
+            "nonfinite_entries": per_entry}
+
+
 def profile_main_path(main_path, wall_ms: float) -> dict:
     """One more run of the main path under torch.profiler (CUDA activity
     only): the device's busy time (the self time of every kernel, copy and
     fill), the idle share of ``wall_ms`` (the unprofiled run's fit + refine
     wall time), the busy time by kind, and the 12 largest consumers."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from llckbdm_tpu_torch.tools.trace_capture import device_rows
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         main_path()
         window_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:      # counted by its kernels
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:                            # older torch
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
-    rows.sort(key=lambda r: -r[0])
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     check(busy > 0, "torch.profiler recorded no device time")
 
@@ -1779,68 +1979,40 @@ def main() -> int:
         c32, DWELL, cfg.m_values, cfg.kbdm, "the north star")
 
     # --- the main path ----------------------------------------------------
+    # the card's default: KbdmConfig(p=16) on CUDA tensors takes the
+    # bfloat16 power iterations (the JAX package's accelerator default)
+    main = north_star(sigs, truths, c32, c64, cfg, rcfg)
+    cons, pooled, counts, refined = (main.pop(k) for k in (
+        "cons", "pooled", "counts", "refined"))
+    main_path = main.pop("drive")
+    launches = main["launches"]
+    t_fit, t_refine = main["fit_ms"] / 1e3, main["refine_ms"] / 1e3
+    peak_gb, offdiag, gate = main["peak_gib"], main["jacobi_offdiag_rel"], \
+        main["gate"]
+    for name in results:
+        results[name]["launches"] = launches.get(name, 0)
+    rank_kernels(results)
+
     def top(lines):
         return LineList(*(x[..., :REFINE_CLUSTERS] for x in lines))
 
-    def main_path():
-        cons, pooled, counts, stats = llc_kbdm_fit(c32, DWELL, cfg)
-        torch.cuda.synchronize()
-        t_mid = time.perf_counter()
-        refined = refine_lines(c64, top(cons), DWELL, rcfg)
-        torch.cuda.synchronize()
-        return cons, pooled, counts, refined, t_mid
-
-    main_path()                                   # warm-up (cuBLAS, allocator)
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    cons, pooled, counts, refined, t_mid = main_path()
-    t_end = time.perf_counter()
-    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_ON_CUDA)
-    t_fit, t_refine = t_mid - t0, t_end - t_mid
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"main path V={VOXELS}: fit {t_fit * 1e3:.1f} ms, refine "
-          f"{t_refine * 1e3:.1f} ms, {VOXELS / (t_fit + t_refine):.1f} refined "
-          f"fits/s; peak {peak_gb:.2f} GiB; launches {launches}; plain on "
-          f"CUDA {plain}")
-    for name in results:
-        results[name]["launches"] = launches.get(name, 0)
-        check(launches.get(name, 0) > 0, f"{name} was not launched by the "
-              f"main path")
-    check(not any(plain.values()), f"a plain version ran on CUDA: {plain}")
-    rank_kernels(results)
-    check(cons.amplitude.shape == (VOXELS, cfg.max_clusters),
-          f"consolidated shape {tuple(cons.amplitude.shape)}")
-    check(refined.z.shape == (VOXELS, REFINE_CLUSTERS)
-          and refined.z.dtype == torch.complex128, "refined shape or dtype")
-    live = refined.mask > 0.5
-    check(bool(torch.isfinite(refined.z[live]).all()
-               and torch.isfinite(refined.d[live]).all()),
-          "non-finite refined lines")
-    n_lines = live.sum(-1)
-    check(bool((n_lines >= 5).all()), "a voxel lost a genuine line")
-    print(f"refined lines per voxel: min {n_lines.min().item()}, max "
-          f"{n_lines.max().item()}; cluster counts of voxel 0 "
-          f"{counts[0].tolist()}")
-
-    # --- gates ------------------------------------------------------------
-    offdiag = jacobi_counter(c32[:32], DWELL, cfg.m_values, cfg.kbdm)
-    print(f"Jacobi off-diagonal on production matrices (32 voxels): "
-          f"{offdiag:.3e} (< 1e-2)")
-    check(offdiag < 1e-2, f"Jacobi did not converge: {offdiag:.3e}")
-
-    gn = refined.gn_step.cpu().numpy()
-    worst_voxels = largest_step_voxels(gn)
-    errs = gate_errors(
-        worst_voxels, sigs, truths,
-        lambda i: line_list_to_np(LineList(*(x[i] for x in top(cons)))),
-        lambda i: refined_to_np(refined._replace(
-            z=refined.z[i], d=refined.d[i], mask=refined.mask[i]), DWELL))
-    gate = max(errs)
-    print(f"refined vs float64 oracle GN on voxels {worst_voxels} (largest "
-          f"last GN step {gn[worst_voxels[0]].max():.3e}): max err "
-          f"{gate:.3e} (< 1e-8); per voxel {errs}")
-    check(gate < 1e-8, f"refined lines missed the 1e-8 oracle gate: {gate:.3e}")
+    # the same path on the float32 power iterations, under the same gates
+    f32_cfg = dataclasses.replace(cfg, kbdm=dataclasses.replace(
+        cfg.kbdm, subspace_bf16=False))
+    f32 = north_star(sigs, truths, c32, c64, f32_cfg, rcfg)
+    for k in ("cons", "pooled", "counts", "refined", "drive"):
+        del f32[k]
+    results["cholqr_rinv"]["launches_f32_branch"] = f32["launches"][
+        "cholqr_rinv"]
+    results["cholqr_rinv"]["production_grams_f32_branch"] = \
+        production_gram_checks(c32, DWELL, cfg.m_values, f32_cfg.kbdm,
+                               "the north star (float32 branch)")
+    shift_record = f32_shift_record(c32, f32_cfg.kbdm)
+    print(f"{smi}: main path V={VOXELS}, bfloat16 power iterations fit "
+          f"{main['fit_ms']:.1f} ms, refine {main['refine_ms']:.1f} ms, peak "
+          f"{main['peak_gib']:.2f} GiB; float32 fit {f32['fit_ms']:.1f} ms, "
+          f"refine {f32['refine_ms']:.1f} ms, peak {f32['peak_gib']:.2f} GiB",
+          flush=True)
 
     # --- where the main path's device time goes ---------------------------
     prof = profile_main_path(main_path, (t_fit + t_refine) * 1e3)
@@ -1873,6 +2045,8 @@ def main() -> int:
     # --- past one warp: p = 32 and 56, the kernels at k, n <= 64 ----------
     spec["wide"], wide_inputs = wide_phase(sigs, truths, c32, c64,
                                            cfg, rcfg)
+    spec["wide"]["default_branch_record"] = wide_default_record(
+        sigs, truths, c32, cfg)
     for name, rows in wide_kernel_checks(wide_inputs).items():
         results[name]["wide_shapes"] = rows
     del wide_inputs
@@ -1904,8 +2078,11 @@ def main() -> int:
 
     # --- the entry points, the stage profiler, the FFT operator, the tools
     new = {"entry": entry_phase(), "dryrun": dryrun_phase(),
-           "stages": stages_phase(cfg.kbdm), "fft_hankel": fft_hankel_phase(),
-           **tools_phase()}
+           "stages": stages_phase(cfg.kbdm),
+           "stages_f32": stages_phase(dataclasses.replace(
+               cfg.kbdm, subspace_bf16=False)),
+           "fft_hankel": fft_hankel_phase(),
+           **tools_phase(), **precision_tools_phase()}
     for name in MAIN_KERNELS:
         results[name]["launches_new_paths"] = {
             path: (sum(x.get(name, 0) for x in res["launches"])
@@ -1937,6 +2114,8 @@ def main() -> int:
     print(json.dumps({"voxels": VOXELS, "fit_ms": t_fit * 1e3,
                       "refine_ms": t_refine * 1e3, "peak_gib": peak_gb,
                       "jacobi_offdiag_rel": offdiag, "gate_max_err": gate,
+                      "branches": {"bfloat16": main, "float32": f32},
+                      "f32_powiter_shift_3e-6": shift_record,
                       "profile": prof, "spec": spec, "grid": grid,
                       "two_ranks": two, "new_paths": new}))
     print(json.dumps({"kernels": kernels}))

@@ -15,23 +15,46 @@ import torch
 from . import cuda_linalg
 
 
-@contextlib.contextmanager
-def highest_precision():
-    """Run float32 matmuls in full float32 (no TF32) inside the block — the
-    counterpart of the JAX package's ``Precision.HIGHEST`` sites.
+PRECISIONS = ("highest", "high")
 
-    It sets ``torch.set_float32_matmul_precision``, a process-wide setting,
-    and restores the previous value on exit: for as long as the block runs,
-    every thread of the process sees "highest", and a thread that changes
-    the setting meanwhile changes it for the block too.  The port starts no
-    thread of its own; a caller that runs it beside its own TF32 work in
-    another thread shares the one setting."""
+
+@contextlib.contextmanager
+def matmul_precision(precision: str = "highest"):
+    """Run float32 matmuls inside the block at ``precision``, the
+    counterpart of the JAX package's ``jax.lax.Precision`` at its sites:
+
+    * "highest": full float32, no TF32 (``Precision.HIGHEST``);
+    * "high": torch's "high", TF32 on an H100's tensor cores
+      (``Precision.HIGH``).  JAX documents HIGH as "3 bfloat16 passes, or
+      tensorfloat32 where available": on an NVIDIA GPU it is TF32, and
+      torch's "high" makes the same promise.  On a CPU both compute in
+      float32.
+
+    Any other value raises ValueError (the JAX package reads every string
+    but "highest" as HIGH).  Inside the block bfloat16 products also reduce
+    in float32 (no reduced-precision split-K reduction in cuBLAS), as the
+    JAX package's ``preferred_element_type=float32`` asks.
+
+    It sets ``torch.set_float32_matmul_precision`` and cuBLAS's bfloat16
+    reduction switch, process-wide settings, and restores the previous
+    values on exit: for as long as the block runs, every thread of the
+    process sees them, and a thread that changes them meanwhile changes
+    them for the block too.  The port starts no thread of its own; a caller
+    that runs it beside its own TF32 work in another thread shares the one
+    setting."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"matmul precision {precision!r}: only "
+                         f"{' or '.join(map(repr, PRECISIONS))}")
+    bf16 = torch.backends.cuda.matmul
     prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    prev_bf16 = bf16.allow_bf16_reduced_precision_reduction
+    torch.set_float32_matmul_precision(precision)
+    bf16.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+        bf16.allow_bf16_reduced_precision_reduction = prev_bf16
 
 
 def takagi_small(m: torch.Tensor, sweeps: int = 8):

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..ops.dbscan import compact_labels, dbscan, dbscan_1d, masked_median
-from ..ops.linalg import highest_precision
+from ..ops.linalg import matmul_precision
 from ..signals import LineList, line_list_to_np
 from ..solver.kbdm import KbdmConfig, kbdm_sweep
 
@@ -92,7 +92,7 @@ def _consolidate_one(pool: LineList, member: torch.Tensor):
     return lines, stats
 
 
-@highest_precision()
+@matmul_precision()
 def llc_kbdm_fit(c: torch.Tensor, dwell: float, cfg: LlcKbdmConfig,
                  omega: torch.Tensor | None = None):
     """Full LL-KBDM fit: c (..., N) complex64 -> (consolidated, pooled,
@@ -143,12 +143,16 @@ def llc_kbdm(data: np.ndarray, dwell: float, m_range, p: int = 24,
     "cuda" raises where there is no CUDA device (pass device="cpu" to run
     the kernels' plain versions on the CPU).  On a CUDA device the kernels
     take p + 8 <= 64 (KbdmConfig's oversample is 8), so p <= 56, and at
-    most 32 clusters.  The solver runs its float32 power iterations whatever
-    ``KbdmConfig.subspace_bf16`` says, and ``RefineConfig.eigh_sweeps`` is
-    read by nothing; both are kept for parity with the JAX configurations.
-    The solver and the refinement switch torch's process-wide float32
-    matmul precision to "highest" while they run (``ops.linalg.
-    highest_precision``): another thread's matmuls see it meanwhile.
+    most 32 clusters.  The solver's power iterations run in bfloat16 on a
+    CUDA device (``KbdmConfig.subspace_bf16``, True by default, as the JAX
+    package runs them on its accelerator; past p=16 on noisy signals that
+    algorithm loses lines, so pass p <= 16 or a KbdmConfig with
+    subspace_bf16=False through llc_kbdm_fit) and in float32 on the CPU;
+    ``RefineConfig.eigh_sweeps`` is read by nothing, kept for parity with
+    the JAX configurations.  The solver and the refinement switch torch's
+    process-wide float32 matmul precision to "highest" while they run
+    (``ops.linalg.matmul_precision``): another thread's matmuls see it
+    meanwhile.
 
     Returns (consolidated, pooled, counts):
       consolidated : (k, 4) [or list of per-voxel (k_v, 4)] float64 rows of

@@ -14,8 +14,12 @@ The same math as the JAX solver's TPU path, on native complex tensors:
 * the whole multi-m sweep as one batched pass over one m_max Hankel operator,
   each entry selecting its leading m x m block by row/col masks.
 
-Every float32 matmul runs in full float32 (no TF32).  Everything is
-fixed-shape and masked: slots beyond the numerical rank carry mask=0.
+The power iterations run in bfloat16 on a CUDA tensor (the JAX package's
+TPU branch, ``KbdmConfig.subspace_bf16``) and in float32 on a CPU tensor
+(its CPU branch); every other float32 matmul runs in full float32, or in
+TF32 at the JAX package's four ``mxu_precision`` sites when asked.
+Everything is fixed-shape and masked: slots beyond the numerical rank
+carry mask=0.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch
 
 from ..ops import cuda_jacobi, cuda_linalg
 from ..ops.hankel import hankel_matrices
-from ..ops.linalg import hermitian_solve, highest_precision, takagi_small
+from ..ops.linalg import (PRECISIONS, hermitian_solve, matmul_precision,
+                          takagi_small)
 from ..ops.powers import cpow_fixed, cpowers
 from ..signals import LineList
 
@@ -37,10 +42,23 @@ class KbdmConfig:
     """Solver configuration: the JAX package's fields and defaults, each
     default pinned there by a measured accuracy gate (kbdm.py:47-120).
 
-    ``subspace_bf16`` is read by nothing: the port always runs the float32
-    power iterations, whatever its value (the JAX package also ignores it
-    on a CPU and runs bf16 only on a TPU).  It is kept so that a JAX
-    configuration converts field for field.
+    ``subspace_bf16`` (default True) runs the power iterations in bfloat16
+    where the JAX package does on its accelerator: here on a CUDA tensor
+    (``bf16_power_iterations``).  A CPU tensor takes the float32 branch
+    whatever its value, as the JAX package does on a CPU.  The bfloat16
+    branch is the JAX package's algorithm, and so is its limit: past p=16
+    on noisy signals (the north star's, noise 1e-4) its reduced matrices
+    stay unconverged in eig_sweeps and the lines are lost, as in the JAX
+    package's own accelerator path (ROADMAP.md section 3).  There pass
+    ``subspace_bf16=False``: the float32 branch holds to p=56.
+
+    ``mxu_precision`` is "highest" (full float32) or "high" (TF32 on a
+    card; see ``ops.linalg.matmul_precision``), and applies where the JAX
+    package applies it: the sweep's float32 Hankel applies, its Gram and
+    mix products and the reduced matrix's correction row.  The Takagi step,
+    the amplitudes and the refinement run at "highest" whatever it says.
+    Any other value raises ValueError; the JAX package reads every string
+    but "highest" as "high".
     """
 
     p: int = 24                  # truncation rank / line capacity per run
@@ -56,11 +74,8 @@ class KbdmConfig:
     gram_rcond: float = 1e-7     # Tikhonov shift of the amplitude solve,
                                  # relative to the Gram's mean diagonal
     rhs_chunk: int = 128         # time-axis chunk for the V^H c factoring
-    subspace_bf16: bool = True   # the JAX TPU path's bf16 power iteration;
-                                 # IGNORED here: the port always runs the
-                                 # float32 power-iteration branch
-    mxu_precision: str = "highest"  # only "highest" (true float32) is
-                                 # supported; anything else raises
+    subspace_bf16: bool = True   # bf16 power iterations on a CUDA tensor
+    mxu_precision: str = "highest"  # "highest" (float32) or "high" (TF32)
     seed: int = 0                # seed of the Gaussian sketch
 
 
@@ -141,17 +156,173 @@ def _poles_to_lines(mu: torch.Tensor, keep: torch.Tensor, c: torch.Tensor,
     )
 
 
-def _gram_sk(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _gram_sk(a: torch.Tensor, b: torch.Tensor,
+             precision: str = "highest") -> torch.Tensor:
     """a^H b contracting m: (..., m, S, j1), (..., m, S, j2) -> (..., S, j1, j2)."""
-    return torch.einsum("...msk,...msl->...skl", a.conj(), b)
+    with matmul_precision(precision):
+        return torch.einsum("...msk,...msl->...skl", a.conj(), b)
 
 
-def _mix_sk(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _mix_sk(a: torch.Tensor, w: torch.Tensor,
+            precision: str = "highest") -> torch.Tensor:
     """a @ w per sweep entry: (..., m, S, j1) @ (..., S, j1, j2) -> (..., m, S, j2)."""
-    return torch.einsum("...msk,...skl->...msl", a, w)
+    with matmul_precision(precision):
+        return torch.einsum("...msk,...skl->...msl", a, w)
 
 
-@highest_precision()
+# LAYOUT: sweep blocks live at (..., m_max, S, k) so every Hankel apply is
+# ONE matmul per voxel over (m_max, S*k) columns.
+# MEMORY: a (..., m_max, S, k) block is the sweep's unit of memory (3.28 GiB
+# at V=2048, S=35, k=24 in complex64).  Each one is freed as soon as its
+# last reader is done and masks are applied in place, so that no more than
+# the current block, its successor and one einsum's operand copies are
+# alive at once.  The arithmetic is that of the out-of-place form,
+# operation for operation.
+
+def _apply(h0: torch.Tensor, x: torch.Tensor, mk: torch.Tensor,
+           precision: str) -> torch.Tensor:
+    """Hankel apply to x (..., m, S, j) -> (..., m, S, j), input and output
+    masked by mk (m, S, 1); x may omit the batch dims (the sketch)."""
+    # the masked input, contiguous in x's logical layout, so that its
+    # flattening is a view (x may be an einsum's permuted output)
+    xm = torch.empty(x.shape, dtype=torch.complex64, device=h0.device)
+    torch.mul(x, mk, out=xm)
+    ns, j = xm.shape[-2:]
+    with matmul_precision(precision):
+        y = h0 @ xm.reshape(*xm.shape[:-2], ns * j)
+    del xm
+    return y.reshape(*y.shape[:-1], ns, j).mul_(mk)
+
+
+def _orth_pass(q: torch.Tensor, shift_rel: float,
+               precision: str) -> torch.Tensor:
+    """One shifted CholeskyQR pass over the k columns of every (m, S) block,
+    with a diagonal shift of shift_rel times the Gram's mean diagonal.  The
+    caller rebinds its name to the result, which frees the input."""
+    g = _gram_sk(q, q, precision)
+    g = 0.5 * (g + g.transpose(-1, -2).conj())
+    shift = shift_rel * torch.mean(
+        torch.abs(torch.diagonal(g, dim1=-2, dim2=-1).real), dim=-1)
+    return _mix_sk(q, cuda_linalg.cholqr_rinv(g, shift), precision)
+
+
+# Power iterations take one CholeskyQR pass each: the basis only has to
+# span the dominant subspace, so a bounded condition number suffices.
+# Their blocks are numerically rank-deficient (a few lines in a k-wide
+# block), and at the final passes' 3e-6 shift, which the JAX package's
+# float32 TPU branch uses here too (llckbdm_tpu/solver/kbdm.py:345-348),
+# the float32 Cholesky's rounding (~k eps |G|) drives pivots negative and
+# the block to NaN on 74 of 2048 north-star voxels on an H100 (one or two
+# sweep entries each; chip_smoke.py's f32_shift_record).  On a CPU none of
+# the 74 breaks down, in the port or in the JAX package's float32 TPU
+# branch (tests/test_torch_precision.py, slow): the card's float32 sums,
+# not the algorithm.  The float32 branch takes the 1e-4 shift of the JAX
+# package's bf16 branch (:390).
+F32_POWITER_SHIFT = 1e-4
+# the bf16 branch's shift: bf16 Gram noise is ~1e-2 relative (JAX :389-390)
+BF16_POWITER_SHIFT = 1e-4
+FINAL_SHIFT = 3e-6
+
+
+def bf16_power_iterations(c: torch.Tensor, cfg: "KbdmConfig") -> bool:
+    """Whether the sweep of signal ``c`` runs its power iterations in
+    bfloat16: ``cfg.subspace_bf16`` on a CUDA tensor.  The counterpart of
+    the JAX package's ``cfg.subspace_bf16 and jacobi._tpu_backend()``
+    (kbdm.py:354): the card plays the TPU's part, and a CPU tensor takes
+    the float32 branch, as the JAX package does on its CPU."""
+    return cfg.subspace_bf16 and c.is_cuda
+
+
+def _power_iterations_f32(h0, x0, mk, cfg) -> torch.Tensor:
+    """The float32 branch: the sketch's apply, then per iteration one
+    CholeskyQR pass and the apply of the conjugate basis, every product at
+    cfg.mxu_precision.  Returns the last (..., m, S, k) complex64 block."""
+    prec = cfg.mxu_precision
+    y = _apply(h0, x0.to(torch.complex64), mk, prec)
+    for _ in range(cfg.subspace_iters):
+        y = _orth_pass(y, F32_POWITER_SHIFT, prec)
+        y = _apply(h0, y.conj(), mk, prec)
+    return y
+
+
+def _to_pairs(q: torch.Tensor) -> torch.Tensor:
+    """(..., m, S, j) complex64 -> (..., 2m, S, j) bfloat16 real pairs, the
+    real parts over the imaginary ones, each rounded once."""
+    m = q.shape[-3]
+    out = torch.empty((*q.shape[:-3], 2 * m, *q.shape[-2:]),
+                      dtype=torch.bfloat16, device=q.device)
+    out[..., :m, :, :].copy_(q.real)
+    out[..., m:, :, :].copy_(q.imag)
+    return out
+
+
+def _from_pairs(yb: torch.Tensor) -> torch.Tensor:
+    """(..., 2m, S, j) bfloat16 real pairs -> (..., m, S, j) complex64
+    (exact)."""
+    m = yb.shape[-3] // 2
+    y = torch.empty((*yb.shape[:-3], m, *yb.shape[-2:]),
+                    dtype=torch.complex64, device=yb.device)
+    yr = torch.view_as_real(y)
+    yr[..., 0].copy_(yb[..., :m, :, :])
+    yr[..., 1].copy_(yb[..., m:, :, :])
+    return y
+
+
+def _power_iterations_bf16(h0, x0, mk, cfg) -> torch.Tensor:
+    """The bfloat16 branch (the JAX package's kbdm.py:354-410): bfloat16
+    storage of the blocks and of the Hankel operator, products with float32
+    accumulation.  torch has no complex bfloat16, so a block is stored as
+    real pairs (..., 2m, S, k), real parts over imaginary ones, and the
+    operator as the real (2m, 2m) block [[Re, -Im], [Im, Re]]: one bfloat16
+    GEMM per apply, accumulated in float32 and rounded to bfloat16 once,
+    as the JAX program's ``(mmf(re, re) - mmf(im, im)).astype(bf16)``.
+    Each CholeskyQR pass forms the Gram in float32 from the upcast block
+    (exact products of bfloat16 values, float32 sums), with the 1e-4 shift,
+    through the cholqr_rinv kernel.  Always at "highest", whatever
+    cfg.mxu_precision says, as in the JAX package.  Returns the last block
+    upcast to complex64."""
+    m = h0.shape[-1]
+    ns, bf = mk.shape[1], torch.bfloat16
+    op = torch.empty((*h0.shape[:-2], 2 * m, 2 * m), dtype=bf,
+                     device=h0.device)
+    op[..., :m, :m].copy_(h0.real)
+    op[..., :m, m:].copy_(h0.imag).neg_()
+    op[..., m:, :m].copy_(h0.imag)
+    op[..., m:, m:].copy_(h0.real)
+    # the mask on both halves, and on the conjugate (imaginary half negated)
+    mk2 = torch.cat([mk, mk]).to(bf)
+    mk2c = torch.cat([mk, -mk]).to(bf)
+
+    def apply(xb, mask):
+        xm = xb * mask
+        j = xm.shape[-1]
+        y = op @ xm.reshape(*xm.shape[:-2], ns * j)
+        del xm
+        return y.reshape(*y.shape[:-1], ns, j).mul_(mk2)
+
+    x0b = torch.cat([x0, torch.zeros_like(x0)]).to(bf)
+    yb = apply(x0b, mk2)
+    del x0b
+    for _ in range(cfg.subspace_iters):
+        y = _from_pairs(yb)
+        del yb
+        g = _gram_sk(y, y)
+        g = 0.5 * (g + g.transpose(-1, -2).conj())
+        shift = BF16_POWITER_SHIFT * torch.mean(
+            torch.abs(torch.diagonal(g, dim1=-2, dim2=-1).real), dim=-1)
+        # the JAX program states this product in float32 (bf16 times
+        # float32 promotes); the TPU ran it as one bfloat16 pass
+        q = _mix_sk(y, cuda_linalg.cholqr_rinv(g, shift))
+        del y, g
+        qb = _to_pairs(q)
+        del q
+        yb = apply(qb, mk2c)
+        del qb
+    del op
+    return _from_pairs(yb)
+
+
+@matmul_precision()
 def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
                cfg: KbdmConfig, with_diag: bool = False,
                _stop: str | None = None, omega: torch.Tensor | None = None):
@@ -159,7 +330,10 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
 
     One batched pass for the whole sweep: the m_max Hankel operator is
     materialized once; each sweep entry applies row/col masks selecting its
-    leading m x m block.
+    leading m x m block.  The power iterations run in bfloat16 where
+    ``bf16_power_iterations(c, cfg)`` says so (cfg.subspace_bf16 on a CUDA
+    tensor), else in float32; the final CholeskyQR2 basis and everything
+    after it run in float32 on either branch.
 
     with_diag=True additionally returns a dict with ``eig_offdiag_rel``
     (..., S): the final Jacobi off-diagonal Frobenius norm of each reduced
@@ -172,11 +346,12 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
 
     _stop: profiling hook — return the named intermediate ("hankel" |
     "powiter" | "basis" | "m_small" | "takagi" | "reduced" | "eig") instead
-    of the line list.
+    of the line list.  "powiter" is the last power iteration's block as
+    complex64 on either branch.
     """
-    if cfg.mxu_precision != "highest":
+    if cfg.mxu_precision not in PRECISIONS:
         raise ValueError(f"mxu_precision={cfg.mxu_precision!r}: only "
-                         f"'highest' (true float32) is supported")
+                         f"{' or '.join(map(repr, PRECISIONS))}")
     if c.dtype != torch.complex64:
         raise TypeError(f"kbdm_sweep: need a complex64 signal, got {c.dtype}")
     m_values = tuple(int(m) for m in m_values)
@@ -187,6 +362,7 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     p, k = cfg.p, cfg.p + cfg.oversample
     ns = len(m_values)
     dev = c.device
+    prec = cfg.mxu_precision
 
     h0 = hankel_matrices(c, m_max)            # (..., m_max, m_max)
     if _stop == "hankel":
@@ -204,62 +380,23 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
         raise ValueError(f"omega: need shape {(m_max, k)}, got "
                          f"{tuple(omega.shape)}")
 
-    # LAYOUT: sweep blocks live at (..., m_max, S, k) so every Hankel apply
-    # is ONE matmul per voxel over (m_max, S*k) columns.
-    # MEMORY: a (..., m_max, S, k) block is the sweep's unit of memory
-    # (3.28 GiB at V=2048, S=35, k=24).  Each one is freed as soon as its
-    # last reader is done and masks are applied in place, so that no more
-    # than the current block, its successor and one einsum's operand
-    # copies are alive at once.  The arithmetic is that of the out-of-place
-    # form, operation for operation.
-    def apply_op(x):
-        """Hankel apply to x (..., m, S, j) -> (..., m, S, j); x may omit
-        the batch dims (the (m, S, k) sketch)."""
-        # the masked input, contiguous in x's logical layout, so that its
-        # flattening is a view (x may be an einsum's permuted output)
-        xm = torch.empty(x.shape, dtype=torch.complex64, device=dev)
-        torch.mul(x, mk, out=xm)
-        j = xm.shape[-1]
-        y = h0 @ xm.reshape(*xm.shape[:-2], ns * j)
-        del xm
-        return y.reshape(*y.shape[:-1], ns, j).mul_(mk)
-
-    def orth_pass(q, shift_rel):
-        """One shifted CholeskyQR pass over the k columns of every (m, S)
-        block, with a diagonal shift of shift_rel times the Gram's mean
-        diagonal.  The caller rebinds its name to the result, which frees
-        the input."""
-        g = _gram_sk(q, q)
-        g = 0.5 * (g + g.transpose(-1, -2).conj())
-        shift = shift_rel * torch.mean(
-            torch.abs(torch.diagonal(g, dim1=-2, dim2=-1).real), dim=-1)
-        return _mix_sk(q, cuda_linalg.cholqr_rinv(g, shift))
-
-    x0 = (omega[:, None, :] * mk).to(torch.complex64)
-    # Power iterations: one CholeskyQR pass each — the basis only has to
-    # span the dominant subspace, so a bounded condition number suffices.
-    # Their blocks are numerically rank-deficient (a few lines in a k-wide
-    # block), and with the final passes' 3e-6 shift the f32 Cholesky's
-    # rounding (~k eps |G|) drove pivots negative and the factor to NaN for
-    # 12 of 2048 bench voxels on an H100.  They take the 1e-4 shift of the
-    # JAX package's TPU production path for this phase (its bf16 branch,
-    # llckbdm_tpu/solver/kbdm.py:390), in float32.
-    y = apply_op(x0)                          # (..., m, S, k)
-    for _ in range(cfg.subspace_iters):
-        y = orth_pass(y, 1e-4)
-        y = apply_op(y.conj())
+    x0 = omega[:, None, :] * mk               # (m, S, k) float32
+    powiter = (_power_iterations_bf16 if bf16_power_iterations(c, cfg)
+               else _power_iterations_f32)
+    y = powiter(h0, x0, mk, cfg)              # (..., m, S, k) complex64
+    del x0
     if _stop == "powiter":
         return y
     q = y
     del y
     for _ in range(cfg.final_orth_passes):
-        q = orth_pass(q, 3e-6)
+        q = _orth_pass(q, FINAL_SHIFT, prec)
     if _stop == "basis":
         return q
 
     # Rayleigh-Ritz Takagi on the k x k projected Hankel
-    t0 = apply_op(q.conj())                   # (..., m, S, k)
-    m_small = _gram_sk(q, t0)                 # (..., S, k, k)
+    t0 = _apply(h0, q.conj(), mk, prec)       # (..., m, S, k)
+    m_small = _gram_sk(q, t0, prec)           # (..., S, k, k)
     m_small = 0.5 * (m_small + m_small.transpose(-1, -2))
     if _stop == "m_small":
         return m_small
@@ -267,7 +404,7 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     if _stop == "takagi":
         return w, sig
     w_p = w[..., :p]
-    u_p = _mix_sk(q, w_p)                     # (..., m, S, p)
+    u_p = _mix_sk(q, w_p, prec)               # (..., m, S, p)
     del q
     sig_p = sig[..., :p]                      # (..., S, p)
     keep_s = sig_p > sig[..., :1] * cfg.rank_tol
@@ -278,7 +415,7 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     #   (U1 x)_i = (U0 x)_{i+1}  for i <= m_s - 2,
     #   (U1 x)_{m_s-1} = sum_{j<m_s} c[m_s+j] x_j  (one new row),
     # and U0 conj(u_p) = t0 conj(w_p) already exists.
-    t0w = _mix_sk(t0, w_p.conj())             # = U0 conj(u_p)
+    t0w = _mix_sk(t0, w_p.conj(), prec)       # = U0 conj(u_p)
     del t0
     t = torch.nn.functional.pad(t0w[..., 1:, :, :], (0, 0, 0, 0, 0, 1))
     del t0w
@@ -286,13 +423,14 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     for s_i, m_s in enumerate(m_values):
         idx[:, s_i] = np.minimum(m_s + np.arange(m_max), n - 1)
     cshift = c[..., torch.as_tensor(idx, device=dev)] * mk[..., 0]
-    corr = torch.einsum("...ms,...msp->...sp", cshift, u_p.conj())
+    with matmul_precision(prec):
+        corr = torch.einsum("...ms,...msp->...sp", cshift, u_p.conj())
     row_sel = np.zeros((m_max, ns, 1), np.float32)
     for s_i, m_s in enumerate(m_values):
         row_sel[m_s - 1, s_i, 0] = 1.0
     rs = torch.as_tensor(row_sel, device=dev)
     t.mul_(mk).add_(rs * corr[..., None, :, :])
-    ut = _gram_sk(u_p, t)                     # (..., S, p, p)
+    ut = _gram_sk(u_p, t, prec)               # (..., S, p, p)
     ut = ut * (s_isq[..., :, None] * s_isq[..., None, :])
     ut = 0.5 * (ut + ut.transpose(-1, -2))
     if _stop == "reduced":

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.linalg import hermitian_solve, highest_precision
+from ..ops.linalg import hermitian_solve, matmul_precision
 from ..ops.powers import cpow_fixed, cpowers
 from ..signals import LineList
 
@@ -87,7 +87,7 @@ def _sum_over_group(g: torch.Tensor, rhs: torch.Tensor, group):
     return g, torch.view_as_complex(buf[k:].reshape(r_re.shape))
 
 
-@highest_precision()
+@matmul_precision()
 def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
                  cfg: RefineConfig = RefineConfig(), *, group=None,
                  t_offset: int | None = None) -> RefinedLines:

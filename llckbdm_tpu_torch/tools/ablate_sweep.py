@@ -10,11 +10,15 @@ cost in context.
 
 Beside each stage: its operations and its bytes, from the shapes (the part
 of the JAX ``tools/profile_stages.py`` model that carries over to the
-port's float32 power iterations), and the least time the card could take
-for them at ``tools.bounds``' peaks.  The bytes count every operand a stage
-streams through device memory once per use: the (V, m, m) Hankel operator
-per apply, and each (V, m, S, k) block once per read and once per write,
-since none of them fits the 50 MB L2.
+port), and the least time the card could take for them at
+``tools.bounds``' peaks.  The bytes count every operand a stage streams
+through device memory once per use: the (V, m, m) Hankel operator per
+apply, and each (V, m, S, k) block once per read and once per write, since
+none of them fits the 50 MB L2.  The power iterations take the branch the
+sweep takes (``solver.kbdm.bf16_power_iterations``, printed): on the
+bfloat16 branch their blocks and operator are 2 bytes a real, the applies
+run at the tensor cores' bfloat16 peak and the float32 Gram and mix
+products of each CholeskyQR pass at the float32 one.
 
     python -m llckbdm_tpu_torch.tools.ablate_sweep [--voxels 512] [--reps 5]
     python -m llckbdm_tpu_torch.tools.ablate_sweep --cpu --voxels 2
@@ -29,7 +33,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..solver.kbdm import KbdmConfig, kbdm_sweep
+from ..solver.kbdm import KbdmConfig, bf16_power_iterations, kbdm_sweep
 from . import bounds, five_peak
 from .timing import device_label, host_ms
 
@@ -59,9 +63,11 @@ def scalarize(out) -> torch.Tensor:
                                                            tuple)))
 
 
-def stage_model(v: int, n: int, m_values, cfg: KbdmConfig) -> dict:
+def stage_model(v: int, n: int, m_values, cfg: KbdmConfig,
+                bf16: bool = False) -> dict:
     """(flops, bytes) of each stage's own work at these shapes, real flops
-    (a complex multiply-add is 8)."""
+    (a complex multiply-add is 8); ``bf16``: the power iterations' bfloat16
+    branch."""
     s, m = len(m_values), max(m_values)
     p, k = cfg.p, cfg.p + cfg.oversample
     hank = v * m * m * 8                    # the operator, complex64
@@ -76,11 +82,21 @@ def stage_model(v: int, n: int, m_values, cfg: KbdmConfig) -> dict:
     chunks = -(-n // cfg.rhs_chunk)
     solve = bounds.chol_solve(s * v, p)
     it = cfg.subspace_iters
+    # the sketch's apply writes a block; each later one reads one too
+    powiter = ((1 + it) * apply + it * orth[0],
+               (1 + it) * hank + (1 + 2 * it) * blk + it * orth[1])
+    if bf16:
+        # the (2m, 2m) bfloat16 operator (as many bytes as the complex64
+        # one) built from h0; each pass upcasts its block (bf16 read,
+        # complex64 write), Gram and mix as above, and rounds the result
+        # back to pairs (complex64 read, bf16 write)
+        blk_bf = blk / 2
+        powiter = ((1 + it) * apply + it * orth[0],
+                   2 * hank + (1 + it) * hank + (1 + 2 * it) * blk_bf
+                   + it * (2 * blk_bf + 2 * blk + orth[1]))
     return {
         "hankel": (0.0, v * n * 8 + hank),
-        # the sketch's apply writes a block; each later one reads one too
-        "powiter": ((1 + it) * apply + it * orth[0],
-                    (1 + it) * hank + (1 + 2 * it) * blk + it * orth[1]),
+        "powiter": powiter,
         "basis": (cfg.final_orth_passes * orth[0],
                   cfg.final_orth_passes * orth[1]),
         # t0 = U0 conj(q), then q^H t0
@@ -98,6 +114,19 @@ def stage_model(v: int, n: int, m_values, cfg: KbdmConfig) -> dict:
     }
 
 
+def powiter_bf16_peak(v: int, m_values, cfg: KbdmConfig) -> float:
+    """The bfloat16 branch's power iterations at their own peaks, as one
+    rate: the applies at the tensor cores' bfloat16 peak, the float32 Gram
+    and mix products and the Cholesky kernel at the float32 one."""
+    s, m, k = len(m_values), max(m_values), cfg.p + cfg.oversample
+    it = cfg.subspace_iters
+    applies = (1 + it) * 8.0 * m * m * s * k * v
+    orth = it * (2 * 8.0 * m * k * k * s * v
+                 + bounds.cholqr_rinv(s * v, k).flops)
+    return (applies + orth) / (applies / bounds.PEAK_BF16
+                               + orth / bounds.PEAK_FLOPS)
+
+
 def run(voxels: int = 512, reps: int = 5, device="cuda",
         cfg: KbdmConfig = KbdmConfig(p=16), m_values=five_peak.M_VALUES,
         verbose: bool = True) -> list[Stage]:
@@ -106,10 +135,13 @@ def run(voxels: int = 512, reps: int = 5, device="cuda",
     sigs, _ = five_peak.signals(voxels, amp_jitter=False)
     c = torch.as_tensor(sigs).to(device, torch.complex64)
     n = c.shape[-1]
-    model = stage_model(voxels, n, m_values, cfg)
+    bf16 = bf16_power_iterations(c, cfg)
+    model = stage_model(voxels, n, m_values, cfg, bf16)
+    peaks = {"powiter": powiter_bf16_peak(voxels, m_values, cfg)} if bf16 else {}
     if verbose:
         print(f"# {device_label(device)}; V={voxels} N={n} S={len(m_values)} "
-              f"p={cfg.p} k={cfg.p + cfg.oversample}; host clock around a "
+              f"p={cfg.p} k={cfg.p + cfg.oversample}; power iterations "
+              f"{'bfloat16' if bf16 else 'float32'}; host clock around a "
               f"synchronise, median of {reps}", flush=True)
         print(f"{'stage':8s} {'cum ms':>10s} {'marginal':>10s} {'GFLOP':>9s} "
               f"{'GB':>8s} {'bound ms':>9s} {'binds':>10s} {'x bound':>8s}")
@@ -123,7 +155,7 @@ def run(voxels: int = 512, reps: int = 5, device="cuda",
 
         cum = host_ms(prefix, device, reps).ms
         flops, nbytes = model[name]
-        bnd = bounds.bound(flops, nbytes)
+        bnd = bounds.bound(flops, nbytes, peaks.get(name, bounds.PEAK_FLOPS))
         row = Stage(name, cum, cum - prev, flops, nbytes, bnd.ms, bnd.by)
         rows.append(row)
         prev = cum

@@ -41,7 +41,7 @@ import torch
 
 from ..ops.hankel import fft_length, hankel_apply_fft, hankel_fft_spectrum
 from ..ops.hankel import hankel_matrices
-from ..ops.linalg import highest_precision
+from ..ops.linalg import matmul_precision
 from . import bounds
 from .timing import cuda_ms, device_label, host_ms
 
@@ -49,13 +49,12 @@ SHAPES = {  # name -> (V, N, m, J)
     "pipeline": (2048, 512, 256, 840),
     "config2": (2048, 2048, 512, 32),
 }
-PEAK_BF16 = 989e12      # dense bfloat16 on the tensor cores, H100 SXM
 ERR_VOXELS = 4
 
 
 def dense_f32(c, x, m, depth):
     h = hankel_matrices(c, m)
-    with highest_precision():
+    with matmul_precision():
         for _ in range(depth):
             x = h @ x
     return x
@@ -95,7 +94,8 @@ def apply_bound(method: str, v: int, n: int, m: int, j: int) -> bounds.Bound:
     flops = 8.0 * m * m * j * v
     if method == "dense_bf16":
         # x and y as bfloat16 real pairs, the (2m, 2m) bfloat16 block
-        return bounds.bound(flops, xy / 2 + v * 8 * m * m, PEAK_BF16)
+        return bounds.bound(flops, xy / 2 + v * 8 * m * m,
+                            bounds.PEAK_BF16)
     return bounds.bound(flops, xy + v * m * m * 8)
 
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from .. import oracle
@@ -60,16 +61,22 @@ def counter_vs_sweeps(voxels: int = 32, sweeps=SWEEPS, device="cuda") -> dict:
 
 
 def _gate(refined, sigs, truths, i) -> float:
+    """Voxel i's gate error; inf where its refined lines are not finite."""
     est = refined_to_np(refined._replace(z=refined.z[i], d=refined.d[i],
                                          mask=refined.mask[i]),
                         five_peak.DWELL)
+    if not np.isfinite(est).all():
+        return float("inf")
     return five_peak.gate_error(est, truths[i], sigs[i], truths[i])
 
 
 def gate_at(eig_sweeps: int, eigh_sweeps: int, device="cuda",
-            time_voxels: int = 512) -> dict:
-    """The two gates' errors and the sweep's ms at V=time_voxels."""
-    kb = KbdmConfig(p=16, eig_sweeps=eig_sweeps, eigh_sweeps=eigh_sweeps)
+            time_voxels: int = 512, mxu_precision: str = "highest",
+            subspace_bf16: bool = True) -> dict:
+    """The two gates' errors and the sweep's ms at V=time_voxels, with the
+    solver's precision fields as given (KbdmConfig's defaults otherwise)."""
+    kb = KbdmConfig(p=16, eig_sweeps=eig_sweeps, eigh_sweeps=eigh_sweeps,
+                    mxu_precision=mxu_precision, subspace_bf16=subspace_bf16)
     dwell = five_peak.DWELL
 
     # gate 1: config 1 noiseless, one m, every cluster refined, 3 iterations

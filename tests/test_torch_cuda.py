@@ -23,9 +23,12 @@ from llckbdm_tpu_torch.ops import (_build, cuda_jacobi, cuda_linalg,
 from llckbdm_tpu_torch.parallel import GridRunner
 from llckbdm_tpu_torch.pipeline.llckbdm import LlcKbdmConfig
 from llckbdm_tpu_torch.signals import LineList, line_list_from_np, sample_signal
+from llckbdm_tpu_torch.solver import kbdm as sweep_mod
 from llckbdm_tpu_torch.solver.kbdm import KbdmConfig, kbdm_sweep
 from llckbdm_tpu_torch.solver.refine import RefineConfig, refine_lines
-from llckbdm_tpu_torch.tools import bench_eigh_variants, kernel_smoke
+from llckbdm_tpu_torch.tools import bench_eigh_variants, five_peak, kernel_smoke
+from torch_precision_checks import (BF16_ULP, genuine, high_only_at_the_sites,
+                                    hold_rows, largest_angle, logged_products)
 
 CFG = KbdmConfig()
 K = CFG.p + CFG.oversample
@@ -52,7 +55,12 @@ def _cs_matrices(rng, b, n):
 
 def _reduced(cuda, p, voxels=8, oversample=8):
     """Production reduced matrices of the KBDM sweep at rank p on the card:
-    chip_smoke's noisy config-1 signals (N=512), m = 120..256 step 8."""
+    chip_smoke's noisy config-1 signals (N=512), m = 120..256 step 8, on
+    the float32 power iterations (subspace_bf16=False).  Past p=16 the
+    card's default, the bfloat16 branch, leaves these matrices unconverged
+    in ten sweeps, as the JAX package's own accelerator algorithm does
+    (ROADMAP.md section 3), and a kernel is compared where both versions
+    converge."""
     rng = np.random.default_rng(p)
     base = np.array([[1.0, 0.05, -120.0, 0.1], [0.8, 0.08, -40.0, 0.0],
                      [1.2, 0.03, 15.0, -0.2], [0.5, 0.10, 90.0, 0.3],
@@ -65,7 +73,8 @@ def _reduced(cuda, p, voxels=8, oversample=8):
                               + 1j * rng.standard_normal(512)))
     c = torch.as_tensor(np.stack(sigs), device=cuda).to(torch.complex64)
     ut = kbdm_sweep(c, DWELL, tuple(range(120, 257, 8)),
-                    KbdmConfig(p=p, oversample=oversample), _stop="reduced")
+                    KbdmConfig(p=p, oversample=oversample,
+                               subspace_bf16=False), _stop="reduced")
     return ut.reshape(-1, p, p).contiguous()
 
 
@@ -369,6 +378,81 @@ def test_sweep_peak_memory_is_bounded(cuda):
     assert peak <= 6 * basis + hankel, (
         f"peak {peak / basis:.2f} basis copies (Hankel "
         f"{hankel / basis:.2f})")
+
+
+def _noisy_north_star(v=4):
+    """The bench's noisy signals (tools.five_peak.signals(v, 1e-4)) as
+    complex64 CPU tensors, and their truths."""
+    sigs, truths = five_peak.signals(v, 1e-4)
+    return torch.as_tensor(sigs).to(torch.complex64), truths
+
+
+@pytest.mark.cuda
+def test_default_sweep_takes_the_bf16_branch(cuda, monkeypatch):
+    """On the card KbdmConfig() runs the bfloat16 power iterations (the
+    JAX package's accelerator default) through the cholqr_rinv kernel, one
+    launch a power iteration; a CPU tensor takes the float32 branch."""
+    calls = []
+    branch = sweep_mod._power_iterations_bf16
+    monkeypatch.setattr(sweep_mod, "_power_iterations_bf16",
+                        lambda *a: calls.append(1) or branch(*a))
+    c, _ = _noisy_north_star()
+    cfg = KbdmConfig(p=16)
+    assert sweep_mod.bf16_power_iterations(c.to(cuda), cfg)
+    assert not sweep_mod.bf16_power_iterations(c, cfg)
+    assert not sweep_mod.bf16_power_iterations(c.to(cuda), KbdmConfig(
+        p=16, subspace_bf16=False))
+    y = kbdm_sweep(c.to(cuda), DWELL, tuple(range(120, 257, 8)), cfg,
+                   _stop="powiter")
+    assert calls == [1]
+    assert y.dtype == torch.complex64 and bool(torch.isfinite(
+        torch.view_as_real(y)).all())
+    assert dict(_build.LAUNCHES) == {"cholqr_rinv": cfg.subspace_iters}
+    assert not _build.PLAIN_ON_CUDA
+
+
+@pytest.mark.cuda
+def test_bf16_branch_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The bfloat16 branch on the card against the same branch on CPU
+    tensors (the predicate patched to take it there), one sketch: cuBLAS
+    and the CPU round other bfloat16 products, so the last power-iteration
+    blocks agree in their dominant five-line subspaces to within one
+    bfloat16 step and in norm to a few; each entry's five lines at the
+    float32 stage's tolerances (tests/torch_precision_checks.py)."""
+    monkeypatch.setattr(sweep_mod, "bf16_power_iterations",
+                        lambda c, cfg: cfg.subspace_bf16)
+    c, truths = _noisy_north_star()
+    m_values, cfg = tuple(range(120, 257, 8)), KbdmConfig(p=16)
+    card, cpu = (kbdm_sweep(x, DWELL, m_values, cfg, _stop="powiter")
+                 .cpu().numpy() for x in (c.to(cuda), c))
+    assert largest_angle(card, cpu) < BF16_ULP
+    assert np.linalg.norm(card - cpu) < 4 * BF16_ULP * np.linalg.norm(cpu)
+    card, cpu = (tuple(f.cpu().numpy() for f in kbdm_sweep(
+        x, DWELL, m_values, cfg)) for x in (c.to(cuda), c))
+    for v in range(len(truths)):
+        for s in range(len(m_values)):
+            hold_rows(genuine(card, truths[v], v, s),
+                      genuine(cpu, truths[v], v, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_high_turns_tf32_on_only_inside_the_four_sites(cuda, monkeypatch,
+                                                       bf16):
+    """mxu_precision="high" on the card: TF32 (torch's "high") inside the
+    JAX package's four sites (the float32 Hankel apply, the Gram and mix
+    products, the correction row) and nowhere else, and off again after
+    the sweep; every product logged by tests/torch_precision_checks.py."""
+    c, _ = _noisy_north_star(2)
+    cfg = KbdmConfig(p=16, subspace_bf16=bf16, mxu_precision="high")
+    with logged_products(monkeypatch) as log:
+        kbdm_sweep(c.to(cuda), DWELL, tuple(range(120, 257, 8)), cfg)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    seen = {site for site, _, _ in log}
+    assert {"site", "corr", "takagi", "lines"} <= seen, seen
+    assert ("bf16 branch" in seen) == bf16
+    assert not high_only_at_the_sites(log)
+    assert any(tf32 for _, _, tf32 in log)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The port's measuring tools (llckbdm_tpu_torch.tools: ablate_sweep,
-bench_fft_hankel, tune_sweeps, noise_gate_sweep, scaling_bench), counterparts
+bench_fft_hankel, tune_sweeps, noise_gate_sweep, scaling_bench,
+precision_gate, config5_run, trace_capture), counterparts
 of the JAX package's tools of the same names, run through their ``--cpu``
 entry points at tiny sizes on the plain versions.  Their times are the
 CPU's and are not checked; what is checked is that each exits 0, refuses to
@@ -14,12 +15,14 @@ import torch
 
 from llckbdm_tpu_torch.solver.kbdm import KbdmConfig
 from llckbdm_tpu_torch.tools import (ablate_sweep, bench_fft_hankel, bounds,
-                                     noise_gate_sweep, scaling_bench,
+                                     config5_run, five_peak,
+                                     noise_gate_sweep, precision_gate,
+                                     scaling_bench, trace_capture,
                                      tune_sweeps)
 
 torch.set_num_threads(1)
 TOOLS = (ablate_sweep, bench_fft_hankel, tune_sweeps, noise_gate_sweep,
-         scaling_bench)
+         scaling_bench, precision_gate, config5_run, trace_capture)
 
 
 @pytest.mark.parametrize("tool", TOOLS, ids=lambda t: t.__name__.split(".")[-1])
@@ -113,3 +116,87 @@ def test_scaling_bench_counts_collectives(tmp_path):
     assert probe["with_collectives"] == [{"all_reduce": iters}] * 2
     assert probe["without_collectives"] == [{}, {}]
     assert np.isfinite(probe["unhidden_ms"])
+
+
+def test_ablate_stage_model_bf16_branch():
+    """On the bfloat16 branch the power iterations do the same operations;
+    their applies stream blocks of 2 bytes a real, and the operator is
+    built once from h0 (as many bytes as h0), while each CholeskyQR pass
+    adds the upcast of its block to complex64 and the rounding of its
+    result back to pairs.  Bound at a rate between the float32 and the
+    bfloat16 peaks."""
+    v, m_values, cfg = 2048, tuple(range(120, 257, 4)), KbdmConfig(p=16)
+    f32 = ablate_sweep.stage_model(v, 512, m_values, cfg)
+    bf16 = ablate_sweep.stage_model(v, 512, m_values, cfg, bf16=True)
+    assert bf16["powiter"][0] == f32["powiter"][0]
+    blk, hank, it = v * 256 * 35 * 24 * 8, v * 256 * 256 * 8, 2
+    applies = (1 + 2 * it) * blk
+    passes = it * (blk + 2 * blk)          # (bf16 + complex64) each way
+    assert bf16["powiter"][1] == (f32["powiter"][1] + 2 * hank - applies / 2
+                                  + passes)
+    assert {k: x for k, x in bf16.items() if k != "powiter"} == {
+        k: x for k, x in f32.items() if k != "powiter"}
+    peak = ablate_sweep.powiter_bf16_peak(v, m_values, cfg)
+    assert bounds.PEAK_FLOPS < peak < bounds.PEAK_BF16
+
+
+def test_precision_gate_cpu(capsys):
+    """Both precisions and both power-iteration branches at the default
+    sweep budgets: on the CPU all four compute in float32 and pass."""
+    assert precision_gate.main(["--cpu", "--time-voxels", "1"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("[PASS]") == 8 and "[FAIL]" not in out
+    for prec in ("highest", "high"):
+        for branch in ("bf16", "f32 "):
+            assert f"{prec:8s} {branch} power iterations" in out
+
+
+def test_config5_run_resumes_exactly_the_deleted_shard(tmp_path, capsys):
+    """A run, a deleted shard, a rerun into the same --out: exactly that
+    shard is recomputed, the rest resumed, and the grid gathers bit for
+    bit as before."""
+    first = config5_run.run(4, 2, str(tmp_path), "cpu", gate_voxels=2,
+                            verbose=False)
+    assert (first["total"], first["computed"], first["resumed"]) == (2, 2, 0)
+    assert first["gate"] < 1e-8
+    (tmp_path / "shard_00000002_00000004.npz").unlink()
+    assert config5_run.main(["--cpu", "--voxels", "4", "--shard", "2",
+                             "--gate-voxels", "0", "--out",
+                             str(tmp_path)]) == 0
+    assert "1 pending (1 resumed)" in capsys.readouterr().out
+    again = config5_run.run(4, 2, str(tmp_path), "cpu", gate_voxels=0,
+                            verbose=False)
+    assert (again["computed"], again["resumed"]) == (0, 2)
+    assert first["grid"].keys() == again["grid"].keys()
+    for k in first["grid"]:
+        np.testing.assert_array_equal(first["grid"][k], again["grid"][k])
+
+
+def test_config5_signals_are_the_jax_tools():
+    """make_grid_signals draws what the JAX tool's vectorised form draws
+    (its config5_run.py:29-52), summed in chunks."""
+    v = 6
+    sigs, truths = config5_run.make_grid_signals(v, chunk=4)
+    base, n, dwell = five_peak.FIVE_PEAK, five_peak.N, five_peak.DWELL
+    rng = np.random.default_rng(0)
+    amp = base[:, 0] * (1.0 + rng.normal(scale=0.05, size=(v, 5)))
+    freq = base[:, 2] + rng.normal(scale=2.0, size=(v, 5))
+    t = np.arange(n) * dwell
+    z = (2j * np.pi * freq[..., None] - 1.0 / base[:, 1][:, None]) * t
+    want = np.sum(amp[..., None] * np.exp(1j * base[:, 3][:, None] + z), 1)
+    want += 1e-4 * (rng.standard_normal((v, n))
+                    + 1j * rng.standard_normal((v, n)))
+    np.testing.assert_allclose(sigs, want, rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(truths[..., 2], freq)
+
+
+def test_trace_capture_cpu(tmp_path, capsys):
+    """The refinement's trace on the CPU: the raw trace kept under --out,
+    the top ops printed from the profiler's own table."""
+    assert trace_capture.main(["--cpu", "--voxels", "1", "--reps", "1",
+                               "--refine", "--top", "5", "--out",
+                               str(tmp_path)]) == 0
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    out = capsys.readouterr().out
+    assert "traced 1 iterations (refine) at V=1" in out
+    assert "total device-op time" in out

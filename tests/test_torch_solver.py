@@ -123,7 +123,7 @@ def test_kbdm_sweep_rejects_bad_input():
                       TCFG)
     with pytest.raises(ValueError):
         lp.kbdm_sweep(torch.zeros(512, dtype=torch.complex64), 1e-3, (64,),
-                      dataclasses.replace(TCFG, mxu_precision="high"))
+                      dataclasses.replace(TCFG, mxu_precision="medium"))
     with pytest.raises(TypeError):
         lp.kbdm_sweep(torch.zeros(512, dtype=torch.complex128), 1e-3, (64,),
                       TCFG)

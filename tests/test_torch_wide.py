@@ -323,3 +323,122 @@ def test_p56_against_jax_record(capsys):
         assert rows["port, JAX sketch"][v][6][0] == 5
         for who in rows:
             assert rows[who][v][20][1] < 1e-8, (who, v)
+
+
+@pytest.mark.slow
+def test_p56_against_jax_tpu_path_record(capsys, monkeypatch):
+    """The p=56 comparison again, now with the JAX package's TPU path (run
+    on the CPU: force_backend("tpu"), its Pallas kernels interpreted), the
+    algorithm the port ports (PERF.md sections 6-7, ROADMAP.md section 3).
+
+    1. On voxels 2005 and 534 at p = 24, 32 and 56, stage by stage, the
+       port given the JAX package's sketch against the TPU path, on both
+       branches: bfloat16 (the port's branch taken on CPU tensors) and
+       float32 (the port's power-iteration shift set to the JAX package's
+       3e-6, so both run one algorithm).  Printed: the powiter blocks'
+       largest principal angle, the Takagi singular values' gap relative
+       to the largest, the Jacobi counter, and the sweep entries (of 70)
+       that hold a valid line within 1 Hz of each of the five true ones.
+       Asserted: the singular values agree to float32 rounding (3e-5 of
+       the largest: k eps = 7.6e-6 at k=64 with a margin of 4; the JAX
+       package's CPU path was 8.6e-5 away at p=56).
+    2. How often the port's own path on the CPU (float32, shift 1e-4)
+       refines a sixth line on the two voxels at p=56 over 8 sketches: its
+       own draws (seeds 0-7) and the JAX package's (PRNGKey 0-7).
+       Printed."""
+    import functools
+
+    from llckbdm_tpu.ops import jacobi, pallas_jacobi, pallas_linalg
+    from llckbdm_tpu.ops.cplx import CArr
+    from llckbdm_tpu_torch.solver import kbdm as K
+    from llckbdm_tpu_torch.tools import five_peak
+    from torch_precision_checks import largest_angle
+
+    voxels = P56_VOXELS[:2]
+    sigs, truths = five_peak.signals(2048, 1e-4)
+    sigs, truths = sigs[list(voxels)], truths[list(voxels)]
+    m_values = five_peak.M_VALUES
+    c = CArr(jnp.asarray(sigs.real, jnp.float32),
+             jnp.asarray(sigs.imag, jnp.float32))
+    ct = torch.as_tensor(sigs).to(torch.complex64)
+
+    def jax_omega(seed, k):
+        return torch.from_numpy(np.array(jax.random.normal(
+            jax.random.PRNGKey(seed), (max(m_values), k), jnp.float32)))
+
+    def five_lines(f, mask):
+        """Sweep entries with a valid line within 1 Hz of each true one."""
+        near = ((np.abs(f[..., None, :] - truths[:, None, :, 2, None]) < 1.0)
+                & (mask[..., None, :] > 0.5))
+        return int(near.any(-1).all(-1).sum())
+
+    rows = []
+    with monkeypatch.context() as mp:
+        for mod, names in ((pallas_linalg, ("cholqr_rinv", "gram_svd",
+                                            "chol_solve")),
+                           (pallas_jacobi, ("eig_cs", "eig_cs_resid"))):
+            for name in names:
+                mp.setattr(mod, name, functools.partial(getattr(mod, name),
+                                                        interpret=True))
+        mp.setattr(K, "bf16_power_iterations",
+                   lambda c, cfg: cfg.subspace_bf16)
+        mp.setattr(K, "F32_POWITER_SHIFT", 3e-6)
+        for p in (24, 32, 56):
+            for bf16 in (True, False):
+                jcfg = lt.KbdmConfig(p=p, subspace_bf16=bf16)
+                pcfg = convert.kbdm_config_from_ref(dataclasses.asdict(jcfg))
+                om = jax_omega(jcfg.seed, jcfg.p + jcfg.oversample)
+                with jacobi.force_backend("tpu"):
+                    def sweep(stop=None, diag=False):
+                        return jax.jit(lambda x: lt.kbdm_sweep(
+                            x, DWELL, m_values, jcfg, with_diag=diag,
+                            _stop=stop))(c)
+                    jy = sweep("powiter")
+                    _, jsig = sweep("takagi")
+                    jlines, jdiag = sweep(diag=True)
+                py = lp.kbdm_sweep(ct, DWELL, m_values, pcfg,
+                                   _stop="powiter", omega=om)
+                _, psig = lp.kbdm_sweep(ct, DWELL, m_values, pcfg,
+                                        _stop="takagi", omega=om)
+                plines, pdiag = lp.kbdm_sweep(ct, DWELL, m_values, pcfg,
+                                              with_diag=True, omega=om)
+                angle = largest_angle(py.numpy(), np.asarray(jy.re)
+                                      + 1j * np.asarray(jy.im))
+                jsig = np.asarray(jsig)[..., :p]
+                gap = (np.abs(psig.numpy()[..., :p] - jsig)
+                       / jsig[..., :1]).max()
+                rows.append((
+                    p, bf16, angle, gap,
+                    float(np.asarray(jdiag["eig_offdiag_rel"]).max()),
+                    pdiag["eig_offdiag_rel"].max().item(),
+                    five_lines(np.asarray(jlines.frequency),
+                               np.asarray(jlines.mask)),
+                    five_lines(plines.frequency.numpy(),
+                               plines.mask.numpy())))
+
+    cfg = five_peak.north_star_config(lp.KbdmConfig(p=56))
+    sixth = {}
+    for who in ("own", "jax"):
+        for seed in range(8):
+            kcfg = lp.KbdmConfig(p=56, seed=seed)
+            om = jax_omega(seed, 64) if who == "jax" else None
+            cons, _, _, _ = lp.llc_kbdm_fit(
+                ct, DWELL, dataclasses.replace(cfg, kbdm=kcfg), omega=om)
+            n = (cons.mask[:, :16] > 0.5).sum(-1)
+            sixth[(who, seed)] = [i for i, x in zip(voxels, n.tolist())
+                                  if x > 5]
+    with capsys.disabled():
+        print("\nvoxels 2005 and 534, the port given the JAX package's "
+              "sketch against its TPU path (CPU, interpreted):")
+        print("p | branch | powiter angle | takagi gap / s_max | counter "
+              "JAX, port | entries with the five lines (of 70) JAX, port")
+        for p, bf16, angle, gap, jc, pc, jl, pl in rows:
+            print(f"{p} | {'bf16' if bf16 else 'f32 (3e-6)'} | {angle:.3e} | "
+                  f"{gap:.3e} | {jc:.3e}, {pc:.3e} | {jl}, {pl}")
+        for who in ("own", "jax"):
+            hits = sum(len(sixth[(who, s)]) for s in range(8))
+            print(f"p=56, the port's float32 path (1e-4), {who} sketches, "
+                  f"seeds 0-7: a sixth refined line on {hits} of 16 (voxel, "
+                  f"seed) pairs: {[sixth[(who, s)] for s in range(8)]}")
+    for p, bf16, angle, gap, *_ in rows:
+        assert gap < 3e-5, (p, bf16, gap)
