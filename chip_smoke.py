@@ -46,6 +46,16 @@
    of the unprofiled run's wall time, the largest consumers, and each
    hand-written kernel's device time per launch (the 32 x 32 Gauss-Newton
    solve is too short for an event window to show its device time).
+   Then the port's benchmark and stage profiler, each through its entry
+   point: ``llckbdm_tpu_torch.bench.main(["--json-only"])`` at V=2048 (its
+   JSON line printed; it exits 0, its own RuntimeErrors uncaught, with the
+   gate below 1e-8 and the Jacobi counter below 1e-2; its fit and refine
+   launch all four main-path kernels and its eigensolve eig_cs, no plain
+   version on a CUDA tensor; its fit time within a factor of 1.5 of the
+   main path's above), ``bench.main(["--saturation"])`` (its five rates
+   printed) and ``tools.profile_stages`` at V=512 (its rows and
+   pipeline_pct_of_light printed, its JSON written to
+   chiprun_out/profile_stages.json).
 5. The spec-scale gates the JAX package proved on its chip, each a path
    driven once with the launch counts set to 0 before and read after (every
    main-path kernel launched, no plain version on a CUDA tensor), each gate
@@ -146,7 +156,9 @@ Nothing catches a failure of the port.  The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import pathlib
 import subprocess
@@ -1740,6 +1752,88 @@ def precision_tools_phase() -> dict:
     return out
 
 
+def captured(fn) -> tuple[object, str, str]:
+    """fn's result and what it printed to stdout and to stderr."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        res = fn()
+    return res, out.getvalue(), err.getvalue()
+
+
+def bench_phase(main_fit_ms: float) -> dict:
+    """The benchmark and the stage profiler through their entry points,
+    each driven with the launch counts set to 0 before and read after:
+    ``bench.main(["--json-only"])`` at V=2048 (exit 0, the gate and the
+    counter under their limits, every main-path kernel launched by its fit
+    and refine and eig_cs by its eigensolve, no plain version on a CUDA
+    tensor, its fit within a factor of 1.5 of ``main_fit_ms``),
+    ``bench.main(["--saturation"])`` (five rates) and
+    ``tools.profile_stages`` at V=512 (every row; its JSON written under the
+    checkout's ignored output directory)."""
+    from llckbdm_tpu_torch import bench
+    from llckbdm_tpu_torch.tools import profile_stages
+
+    out = {}
+    t0 = time.perf_counter()
+    stages: dict = {}
+    launches, (rc, text, _) = counted_path("bench", lambda: captured(
+        lambda: bench.main(["--json-only"], stages)))
+    lines = text.strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"bench: exit {rc}, output {lines}")
+    print(lines[0], flush=True)
+    line = json.loads(lines[0])
+    counters = line["counters"]
+    check(counters["gate_max_rel_err"] < 1e-8
+          and counters["jacobi_offdiag_rel_production"] < 1e-2,
+          f"bench: counters {counters}")
+    fit_refine = set(stages["fit"]["launches"]) | set(
+        stages["refine"]["launches"])
+    check(fit_refine >= set(MAIN_KERNELS),
+          f"bench: its fit and refine launched {fit_refine}")
+    check(stages["eigensolve"]["launches"].get("eig_cs", 0) > 0,
+          f"bench: its eigensolve launched {stages['eigensolve']}")
+    check(not any(s["plain"] for s in stages.values()),
+          f"bench: a plain version ran on CUDA: {stages}")
+    fit_ms = 1e3 * line["voxels"] / line["fit_fits_per_sec"]
+    ratio = fit_ms / main_fit_ms
+    print(f"bench: fit {fit_ms:.1f} ms against the main path's "
+          f"{main_fit_ms:.1f} ms (x{ratio:.3f}); {line['value']} refined "
+          f"fits/s; eigensolve {line['eigensolve_gflops']} GFLOP/s; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(1 / 1.5 <= ratio <= 1.5,
+          f"bench: fit {fit_ms:.1f} ms, main path {main_fit_ms:.1f} ms")
+    out["bench"] = {"line": line, "stages": stages, "launches": launches,
+                    "fit_ms_vs_main_path": ratio,
+                    "wall_s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    launches, (rc, _, err) = counted_path("bench --saturation", lambda: (
+        captured(lambda: bench.main(["--saturation"]))))
+    rates = [x for x in err.splitlines() if x.startswith("# saturation")]
+    check(rc == 0 and len(rates) == len(bench.SATURATION_V),
+          f"bench --saturation: exit {rc}, {err}")
+    print("\n".join(rates), flush=True)
+    out["bench_saturation"] = {"rates": rates, "launches": launches,
+                               "wall_s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    path = ROOT / "chiprun_out" / "profile_stages.json"
+    launches, rc = counted_path("profile_stages", lambda: profile_stages.main(
+        ["--voxels", "512", "--out", str(path)]))
+    prof = json.loads(path.read_text())
+    check(rc == 0 and [r["stage"] for r in prof["rows"]]
+          == list(profile_stages.ROWS) and all(
+              np.isfinite(r["ms"]) and r["ms"] > 0 for r in prof["rows"])
+          and 0 < prof["pipeline_pct_of_light"] < 100,
+          f"profile_stages: exit {rc}, {prof}")
+    print(f"profile_stages ({prof['branch']}): pipeline_pct_of_light "
+          f"{prof['pipeline_pct_of_light']:.3f}; {time.perf_counter() - t0:.2f}"
+          f" s", flush=True)
+    out["profile_stages"] = dict(prof, launches=launches,
+                                 wall_s=time.perf_counter() - t0)
+    return out
+
+
 def north_star(sigs, truths, c32, c64, cfg, rcfg) -> dict:
     """The main path at the north star: llc_kbdm_fit, then refine_lines on
     the top 16 clusters, once to warm up and once timed with the launch
@@ -2027,6 +2121,9 @@ def main() -> int:
           f"the host's launch rate: {results['chol_solve']['ms_gn']:.4f} ms; "
           f"bound {results['chol_solve']['bound_ms_gn']:.4f} ms)", flush=True)
 
+    # --- the benchmark and the stage profiler, through their entry points
+    bench_paths = bench_phase(main["fit_ms"])
+
     # --- the spec-scale gates, damping_weight != 0, the 2-D dbscan --------
     spec = spec_phases(oracle)
     damp = damping_phase(sigs, truths, c32, c64, cfg, rcfg)
@@ -2082,7 +2179,7 @@ def main() -> int:
            "stages_f32": stages_phase(dataclasses.replace(
                cfg.kbdm, subspace_bf16=False)),
            "fft_hankel": fft_hankel_phase(),
-           **tools_phase(), **precision_tools_phase()}
+           **tools_phase(), **precision_tools_phase(), **bench_paths}
     for name in MAIN_KERNELS:
         results[name]["launches_new_paths"] = {
             path: (sum(x.get(name, 0) for x in res["launches"])

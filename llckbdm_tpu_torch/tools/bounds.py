@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 PEAK_FLOPS = 67e12      # float32 outside the tensor cores, H100 SXM
 PEAK_BF16 = 989e12      # dense bfloat16 on the tensor cores, H100 SXM
+PEAK_F64 = 34e12        # float64 outside the tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12    # HBM3, H100 SXM
 C64, F32, I32 = 8, 4, 4  # bytes per element
 

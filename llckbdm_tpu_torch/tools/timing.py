@@ -83,6 +83,31 @@ def host_ms(fn: Callable[[], object], device, reps: int = 3) -> Timing:
     return Timing(times[reps // 2], times[0], times[-1], 1, reps)
 
 
+def host_mean(fn: Callable[[], object], device, reps: int = 3,
+              warmups: int = 1) -> tuple[float, float, object]:
+    """Time ``fn`` by the host clock as the JAX package's ``bench.py`` does:
+    ``warmups`` untimed calls, then the mean of ``reps`` calls, each ending
+    in ``torch.cuda.synchronize()`` on a CUDA device.  Returns (mean ms,
+    the first call's ms, the last call's output)."""
+    cuda = torch.device(device).type == "cuda"
+
+    def once() -> tuple[float, object]:
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    first, out = once()
+    for _ in range(warmups - 1):
+        once()
+    total = 0.0
+    for _ in range(reps):
+        ms, out = once()
+        total += ms
+    return total / reps, first, out
+
+
 def device_label(device) -> str:
     """The device a number was measured on: the card's name and power limit
     as ``nvidia-smi`` gives them, or the CPU's (whose times are no card's)."""

@@ -10,6 +10,7 @@ with numpy from a seed; each kernel runs at the main path's size and at an
 odd size, which the wrappers pad or the kernel takes as it is (the eigh
 probe, which pairs only even n, raises instead).
 """
+import json
 import re
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from scipy.optimize import linear_sum_assignment
 
 import torch_grid_worker as worker
+from llckbdm_tpu_torch import bench
 from llckbdm_tpu_torch.ops import (_build, cuda_jacobi, cuda_linalg,
                                    cuda_probes, dbscan)
 from llckbdm_tpu_torch.parallel import GridRunner
@@ -640,6 +642,58 @@ def test_eigh_probe_rejects_odd_n(cuda):
     with pytest.raises(ValueError, match="even n"):
         cuda_probes.eigh_probe(a, 1)
     assert not _build.LAUNCHES
+
+
+# --- the benchmark's entry point on the card -------------------------------
+
+@pytest.mark.cuda
+def test_bench_eigensolve_launches_the_kernel_and_matches_plain(cuda):
+    """The bench's eigensolve launches the eig_cs kernel, and on (64, 16,
+    16) of its inputs the kernel follows the plain version slot by slot
+    after one sweep.  One sweep of complex-orthogonal rotations amplifies
+    float32 rounding on these dense matrices to ~1e-2 (the plain version's
+    arithmetic in complex128 against float32: 1.6e-2 on an H100), and the
+    kernel's FMAs and summation order round otherwise than the plain
+    version's, so the two are held to that scale: no farther apart than
+    float32 moves the algorithm itself, and within 1e-3 of each matrix's
+    norm (a wrong pair order or orientation moves the slots by O(|A|))."""
+    ut = bench.eig_inputs(64, 16).to(cuda)
+    cuda_jacobi.eig_cs(ut, sweeps=CFG.eig_sweeps)
+    assert dict(_build.LAUNCHES) == {"eig_cs": 1}
+    mu_k, res_k = cuda_jacobi.eig_cs_resid(ut, 1)
+    mu_p, res_p = cuda_jacobi.eig_cs_resid_plain(ut, 1)
+    mu_64, res_64 = cuda_jacobi._eig_cs_flat(ut.to(torch.complex128), 1)
+    slot = torch.abs(mu_k - mu_p).max(-1).values
+    rounding = torch.abs(mu_p.to(torch.complex128) - mu_64).max().item()
+    norm = torch.linalg.matrix_norm(ut)
+    print(f"kernel - plain: {slot.max().item():.3e}; plain - float64: "
+          f"{rounding:.3e}; norms {norm.min().item():.2f}-"
+          f"{norm.max().item():.2f}")
+    assert slot.max().item() < rounding
+    assert bool((slot < 1e-3 * norm).all())
+    assert (torch.abs(res_k - res_p).max().item()
+            < torch.abs(res_p.double() - res_64).max().item())
+
+
+@pytest.mark.cuda
+def test_bench_entry_point_on_the_card(cuda, capsys):
+    """bench.main at V=64 exits 0 on the card: both in-bench checks met,
+    the fit and refine launch all four main-path kernels, the eigensolve
+    eig_cs, and no plain version runs on a CUDA tensor."""
+    launches = {}
+    assert bench.main(["--voxels", "64", "--reps", "1", "--json-only"],
+                      launches) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["backend"] == "cuda" and line["voxels"] == 64
+    assert "bfloat16 power iterations" in line["unit"]
+    assert line["counters"]["gate_max_rel_err"] < 1e-8
+    assert line["counters"]["jacobi_offdiag_rel_production"] < 1e-2
+    fit_refine = {**launches["fit"]["launches"],
+                  **launches["refine"]["launches"]}
+    assert set(fit_refine) == {"eig_cs", "gram_svd", "cholqr_rinv",
+                               "chol_solve"}
+    assert launches["eigensolve"]["launches"] == {"eig_cs": 2}
+    assert not any(s["plain"] for s in launches.values())
 
 
 # --- the grid layer on the card (tests/test_parallel.py's small grid) -----

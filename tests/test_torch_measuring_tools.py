@@ -1,6 +1,6 @@
 """The port's measuring tools (llckbdm_tpu_torch.tools: ablate_sweep,
 bench_fft_hankel, tune_sweeps, noise_gate_sweep, scaling_bench,
-precision_gate, config5_run, trace_capture), counterparts
+precision_gate, config5_run, trace_capture, profile_stages), counterparts
 of the JAX package's tools of the same names, run through their ``--cpu``
 entry points at tiny sizes on the plain versions.  Their times are the
 CPU's and are not checked; what is checked is that each exits 0, refuses to
@@ -8,6 +8,7 @@ run without a card unless asked for the CPU, and what each computes that
 does not depend on a clock: the stage model, the gates, the collective
 counts."""
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -17,12 +18,14 @@ from llckbdm_tpu_torch.solver.kbdm import KbdmConfig
 from llckbdm_tpu_torch.tools import (ablate_sweep, bench_fft_hankel, bounds,
                                      config5_run, five_peak,
                                      noise_gate_sweep, precision_gate,
-                                     scaling_bench, trace_capture,
-                                     tune_sweeps)
+                                     profile_stages, scaling_bench,
+                                     trace_capture, tune_sweeps)
 
 torch.set_num_threads(1)
 TOOLS = (ablate_sweep, bench_fft_hankel, tune_sweeps, noise_gate_sweep,
-         scaling_bench, precision_gate, config5_run, trace_capture)
+         scaling_bench, precision_gate, config5_run, trace_capture,
+         profile_stages)
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("tool", TOOLS, ids=lambda t: t.__name__.split(".")[-1])
@@ -200,3 +203,87 @@ def test_trace_capture_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "traced 1 iterations (refine) at V=1" in out
     assert "total device-op time" in out
+
+
+def test_profile_stages_cpu_writes_only_out(tmp_path, capsys):
+    """Every row printed; the JSON printed as the last line and written to
+    --out alone: the JAX package's PROFILE.json is left as it was."""
+    profile = (ROOT / "PROFILE.json").read_bytes()
+    out = tmp_path / "deep" / "profile.json"
+    assert profile_stages.main(["--cpu", "--voxels", "1", "--reps", "1",
+                                "--out", str(out)]) == 0
+    printed = capsys.readouterr().out
+    for name in profile_stages.ROWS:
+        assert f"\n{name} " in printed
+    res = json.loads(printed.strip().splitlines()[-1])
+    assert json.loads(out.read_text()) == res
+    assert list(tmp_path.rglob("*")) == [out.parent, out]
+    assert (ROOT / "PROFILE.json").read_bytes() == profile
+    assert list(res) == ["device", "voxels", "rows", "ideal_ms",
+                         "pipeline_pct_of_light", "branch"]
+    assert res["branch"] == "float32" and res["voxels"] == 1
+    assert [r["stage"] for r in res["rows"]] == list(profile_stages.ROWS)
+    assert all(r["ms"] > 0 for r in res["rows"])
+    assert res["pipeline_pct_of_light"] > 0
+
+
+def test_profile_stages_models_are_the_jax_tools():
+    """The non-kernel rows' work at V=512 is the JAX tool's formulas,
+    restated from tools/profile_stages.py."""
+    v, n, cfg = 512, 512, five_peak.north_star_config()
+    s, p, k, m, c = 35, 16, 24, 256, 32
+    models = profile_stages.work_models(v, n, cfg)
+    rows = profile_stages.ROWS
+    assert models[rows[0]] is None and models[rows[1]] is None
+    # :162-163 hankel_matrices, bytes
+    assert models[rows[2]].bytes == v * m * m * 2 * 4
+    # :189 the apply
+    assert models[rows[3]].flops == 8.0 * m * m * k * s * v
+    # :235-238 _poles_to_lines
+    nch = (n + 128 - 1) // 128
+    assert models[rows[7]].flops == float(s * v) * (
+        nch * 128 * p * 14 + 60 * p * p + 8 * p ** 3 / 3)
+    # :266-269 cluster + consolidate (the % from its VPU share)
+    npool = s * p
+    vpu, mxu = float(v) * 50.0 * npool ** 2, float(v) * 10.0 * npool ** 2 * c
+    assert models[rows[8]].flops == vpu + mxu
+    assert models[rows[8]].light_ms == 1e3 * vpu / bounds.PEAK_FLOPS
+    # the port's refine: complex128 powers (9 bits at N=512), model and J^H r
+    # in float64; G and the 64 x 64 solve in float32
+    f64 = v * 3 * (6 * 9 * c * n + 8 * c * n + 2 * n + 16 * c * n)
+    f32 = v * 3 * (24 * c * c * n + 8 * c * n
+                   + 4 * 64 ** 3 / 3 + 16 * 64 ** 2)
+    assert models[rows[9]].flops == f64 + f32
+    assert models[rows[9]].light_ms == 1e3 * (f64 / bounds.PEAK_F64
+                                              + f32 / bounds.PEAK_FLOPS)
+
+
+def test_profile_stages_kernel_rows_are_the_bounds():
+    v, cfg = 512, five_peak.north_star_config()
+    models = profile_stages.work_models(v, 512, cfg)
+    rows = profile_stages.ROWS
+    for row, b in ((rows[4], bounds.cholqr_rinv(35 * v, 24)),
+                   (rows[5], bounds.gram_svd(35 * v, 24, 7)),
+                   (rows[6], bounds.eig_cs(35 * v, 16, 10))):
+        assert models[row] == (b.flops, b.bytes, b.ms,
+                               f"kernel bound ({b.by})")
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_profile_stages_ideal_budget_has_the_jax_keys(bf16):
+    """The keys of tools/profile_stages.py:300-323 (subspace_iters=2); the
+    power iterations' applies at the bfloat16 peak on that branch only."""
+    cfg = five_peak.north_star_config()
+    ideal = profile_stages.ideal_budget(512, 512, cfg, bf16)
+    assert list(ideal) == [
+        "hankel U0 (HBM)", "bf16 applies x3", "bf16 orth grams/mixes",
+        "f32 final orth x2 (gram+mix)", "cholqr kernels x4",
+        "m_small apply+gram (f32)", "takagi (gram_svd kernel)",
+        "u_p mix + U1-shift mix + gram (f32)", "eig_cs kernel",
+        "poles->lines", "cluster+consolidate"]
+    applies = 3 * 8.0 * 256 ** 2 * 24 * 35 * 512
+    peak = bounds.PEAK_BF16 if bf16 else bounds.PEAK_FLOPS
+    assert ideal["bf16 applies x3"] == 1e3 * applies / peak
+    gram = 8.0 * 256 * 24 * 24 * 35 * 512
+    assert ideal["bf16 orth grams/mixes"] == 1e3 * 4 * gram / bounds.PEAK_FLOPS
+    assert ideal["eig_cs kernel"] == bounds.eig_cs(35 * 512, 16, 10).ms
