@@ -54,7 +54,9 @@
    version on a CUDA tensor; its fit time within a factor of 1.5 of the
    main path's above), ``bench.main(["--saturation"])`` (its five rates
    printed) and ``tools.profile_stages`` at V=512 (its rows and
-   pipeline_pct_of_light printed, its JSON written to
+   pipeline_pct_of_light printed, and nvidia-smi's clocks.sm, power.draw,
+   power.limit and temperature.gpu from just before and just after it;
+   its JSON written to
    chiprun_out/profile_stages.json).
 5. The spec-scale gates the JAX package proved on its chip, each a path
    driven once with the launch counts set to 0 before and read after (every
@@ -140,7 +142,11 @@
    ``tools.scaling_bench`` (1, 2 and 4 ranks of the one card) at their
    defaults, each failing the script where it prints FAIL at the
    production defaults, the data-parallel fit issuing no collective and
-   the time-sharded refine one all-reduce per GN iteration; then the three
+   the time-sharded refine one all-reduce per GN iteration; a one-rank
+   NCCL group made by ``distributed_init(None, backend="nccl",
+   device="cuda:0")`` in a spawned child, bound to cuda:0
+   (``bound_device_id``), one all-reduce on it, and no "Guessing device
+   ID" in the child's stderr; then the three
    tools ported last: ``tools.precision_gate`` at its defaults (the two
    gates and the V=512 sweep at mxu_precision "highest" and "high", on
    both power-iteration branches; failing the script only where the
@@ -175,6 +181,7 @@ DEVICE = "cuda"
 N, DWELL, VOXELS = 512, 5e-4, 2048
 M_VALUES = tuple(range(120, 257, 4))
 REFINE_CLUSTERS, GN_ITERS, GATE_VOXELS = 16, 6, 8
+CLOCKS_QUERY = "clocks.sm,power.draw,power.limit,temperature.gpu"
 MAIN_KERNELS = ("eig_cs", "gram_svd", "cholqr_rinv", "chol_solve")
 GRID_SIDE, GRID_SHARD, GRID_DELETE = 256, 2048, 3
 CONFIG5_VOXELS = 8192       # tools.config5_run's grid, cut to 4 shards
@@ -1643,7 +1650,8 @@ def tools_phase() -> dict:
     1e-2) and scaling_bench on 1, 2 and 4 gloo ranks of the one card (the
     data-parallel fit must issue no collective, the time-sharded refine one
     all-reduce per GN iteration and its control none; every rank launched
-    every main-path kernel and no plain version on a CUDA tensor)."""
+    every main-path kernel and no plain version on a CUDA tensor); then
+    the one-rank NCCL group bound to its card (:func:`nccl_bind_phase`)."""
     from llckbdm_tpu_torch.tools import (noise_gate_sweep, scaling_bench,
                                          tune_sweeps)
 
@@ -1690,7 +1698,61 @@ def tools_phase() -> dict:
     out["scaling_bench"] = dict(scale, wall_s=time.perf_counter() - t0)
     print(f"scaling_bench: {out['scaling_bench']['wall_s']:.2f} s (spawns "
           f"included)", flush=True)
+    out["nccl_bind"] = nccl_bind_phase()
     return out
+
+
+def nccl_bind_child(rank: int, out_dir: str) -> None:
+    """The one rank of a one-rank NCCL group made by distributed_init on
+    cuda:0, with its stderr (the file descriptor, so that NCCL's and
+    torch's C++ logs land there too) in out_dir/stderr.txt: the group must
+    be bound to cuda:0 and an all-reduce of a CUDA tensor must sum it;
+    saved to out_dir/rank0.json."""
+    import os
+
+    from llckbdm_tpu_torch.parallel import distributed_init
+
+    out = pathlib.Path(out_dir)
+    with open(out / "stderr.txt", "w") as err:
+        os.dup2(err.fileno(), 2)
+    distributed_init(None, backend="nccl", device="cuda:0")
+    try:
+        bound = dist.distributed_c10d._get_default_group().bound_device_id
+        check(bound == torch.device("cuda", 0),
+              f"the one-rank NCCL group is bound to {bound}, not cuda:0")
+        x = torch.full((1024,), 3.0, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        check(bool((x == 3.0).all()), f"all_reduce gave {x.unique().tolist()}")
+    finally:
+        dist.destroy_process_group()
+    (out / f"rank{rank}.json").write_text(json.dumps({"bound": str(bound)}))
+
+
+def nccl_bind_phase() -> dict:
+    """distributed_init(None, backend="nccl", device="cuda:0") in one
+    spawned child (the script's own process joins no group): its group
+    bound to cuda:0, one all-reduce, and no "Guessing device ID" in the
+    child's stderr, which is echoed here."""
+    from llckbdm_tpu_torch.entry import spawn_ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            spawn_ranks(nccl_bind_child, 1, (tmp,), timeout=300)
+        finally:
+            err_path = pathlib.Path(tmp) / "stderr.txt"
+            err = err_path.read_text() if err_path.exists() else ""
+            sys.stderr.write(err)
+        bound = json.loads((pathlib.Path(tmp) / "rank0.json").read_text())[
+            "bound"]
+    check("Guessing device ID" not in err,
+          "the one-rank NCCL group guessed its device")
+    wall = time.perf_counter() - t0
+    print(f"nccl bind: one-rank NCCL group bound to {bound}; all_reduce "
+          f"checked; no 'Guessing device ID' in its stderr; {wall:.2f} s",
+          flush=True)
+    return {"bound_device_id": bound, "wall_s": wall}
 
 
 def precision_tools_phase() -> dict:
@@ -1760,6 +1822,14 @@ def captured(fn) -> tuple[object, str, str]:
     return res, out.getvalue(), err.getvalue()
 
 
+def clocks_sample() -> str:
+    """One ``nvidia-smi`` reading of the card's SM clock, power draw, power
+    limit and temperature (CLOCKS_QUERY)."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={CLOCKS_QUERY}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def bench_phase(main_fit_ms: float) -> dict:
     """The benchmark and the stage profiler through their entry points,
     each driven with the launch counts set to 0 before and read after:
@@ -1769,7 +1839,8 @@ def bench_phase(main_fit_ms: float) -> dict:
     tensor, its fit within a factor of 1.5 of ``main_fit_ms``),
     ``bench.main(["--saturation"])`` (five rates) and
     ``tools.profile_stages`` at V=512 (every row; its JSON written under the
-    checkout's ignored output directory)."""
+    checkout's ignored output directory), with the card's clocks, power and
+    temperature sampled just before and just after it."""
     from llckbdm_tpu_torch import bench
     from llckbdm_tpu_torch.tools import profile_stages
 
@@ -1818,18 +1889,22 @@ def bench_phase(main_fit_ms: float) -> dict:
 
     t0 = time.perf_counter()
     path = ROOT / "chiprun_out" / "profile_stages.json"
+    smi = [clocks_sample()]
     launches, rc = counted_path("profile_stages", lambda: profile_stages.main(
         ["--voxels", "512", "--out", str(path)]))
+    smi.append(clocks_sample())
+    print(f"nvidia-smi ({CLOCKS_QUERY}) before profile_stages: {smi[0]}; "
+          f"after: {smi[1]}", flush=True)
     prof = json.loads(path.read_text())
     check(rc == 0 and [r["stage"] for r in prof["rows"]]
           == list(profile_stages.ROWS) and all(
               np.isfinite(r["ms"]) and r["ms"] > 0 for r in prof["rows"])
           and 0 < prof["pipeline_pct_of_light"] < 100,
           f"profile_stages: exit {rc}, {prof}")
-    print(f"profile_stages ({prof['branch']}): pipeline_pct_of_light "
-          f"{prof['pipeline_pct_of_light']:.3f}; {time.perf_counter() - t0:.2f}"
-          f" s", flush=True)
-    out["profile_stages"] = dict(prof, launches=launches,
+    print(f"profile_stages ({prof['branch']}): fit {prof['rows'][0]['ms']:.3f}"
+          f" ms, pipeline_pct_of_light {prof['pipeline_pct_of_light']:.3f}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out["profile_stages"] = dict(prof, launches=launches, nvidia_smi=smi,
                                  wall_s=time.perf_counter() - t0)
     return out
 

@@ -93,7 +93,10 @@ def rank_backend(n: int, dev: torch.device) -> str:
 
 def _dryrun_rank(rank: int, n: int, rdv: str, out_dir: str, device: str,
                  backend: str) -> None:
-    """One rank of the dry run; saves its rows to out_dir/rank{rank}.npz."""
+    """One rank of the dry run; saves its rows to out_dir/rank{rank}.npz.
+    On a card, rank r takes ``cuda:{r % device_count}``: every rank is
+    spawned on this host, so that index is the card's local one, which
+    distributed_init binds."""
     import torch.distributed as dist
 
     from .ops import _build

@@ -49,8 +49,10 @@ def _axis(mesh: DeviceMesh, name: str) -> tuple[int, int]:
 
 
 def _device(mesh: DeviceMesh) -> torch.device:
-    """This rank's device: the current CUDA device on a 'cuda' mesh (which
-    distributed_init set), else the mesh's device type."""
+    """This rank's device: the current CUDA device on a 'cuda' mesh, else
+    the mesh's device type.  What binds the card is
+    :func:`parallel.mesh.distributed_init`, which makes the rank's
+    ``cuda:<local index>`` the current device (and NCCL's ``device_id``)."""
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)

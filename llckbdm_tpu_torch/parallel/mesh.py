@@ -30,22 +30,41 @@ def distributed_init(coordinator: str | None = None, num_processes: int = 1,
                   ``file:///path``) or ``host:port``.  None only for a single
                   process, which then needs no rendezvous.
     backend     : ``"nccl"`` or ``"gloo"``.
-    device      : this rank's device (``"cuda:0"``, ``"cpu"``); a CUDA
-                  device becomes the process's current device first.
+    device      : this rank's device (``"cuda:<local index>"``, ``"cpu"``).
+
+    This call binds the rank to its card: a CUDA device becomes the
+    process's current device (which ``parallel.grid`` places its tensors
+    on), and under NCCL it is also passed as ``device_id``, so that NCCL
+    creates its communicator on that card at once instead of guessing it
+    from the global rank.  The index is the card's on this host (the
+    launcher's ``LOCAL_RANK``), not the global rank.  An index-less
+    ``"cuda"`` means the current device in a single process and raises in
+    a group of several, where it would put every rank of a host on one
+    card.
     """
     device = torch.device(device)
-    if device.type == "cuda" and device.index is not None:
+    if device.type == "cuda":
+        if device.index is None:
+            if num_processes != 1:
+                raise ValueError(
+                    f"device 'cuda' names no card for rank {process_id} of "
+                    f"{num_processes}; pass 'cuda:<local index>', the "
+                    f"card's index on this host (LOCAL_RANK)")
+            device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
+    # device_id acts only under NCCL (an eager communicator, split for
+    # subgroups); gloo is given none
+    bind = {"device_id": device} if backend == "nccl" else {}
     if coordinator is None:
         if num_processes != 1:
             raise ValueError(f"{num_processes} processes need a coordinator")
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
+                                world_size=1, **bind)
         return
     if "://" not in coordinator:
         coordinator = f"tcp://{coordinator}"
     dist.init_process_group(backend, init_method=coordinator,
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id, **bind)
 
 
 def make_mesh(axis_sizes: dict[str, int], device_type: str) -> DeviceMesh:

@@ -16,8 +16,11 @@ iterations on all the fit's slots.  The random inputs are drawn as the JAX
 tool draws them (Gaussian parts, the same scales), from torch generators on
 the device seeded 0-5 where the JAX tool used PRNGKey 0-5.
 
-Each row is timed by the host clock, one warm-up call and then the mean of
-``--reps`` calls each ending in ``torch.cuda.synchronize()``, less the
+Each row is timed by the host clock, two untimed calls (``WARMUPS``, as the
+port's ``bench.py`` takes: one left the bench's fit 7.6% slow on the card)
+and then the mean of ``--reps`` calls each ending in
+``torch.cuda.synchronize()`` (each call's time kept as the row's
+``runs_ms``, the dispatch floor not subtracted), less the
 dispatch floor: on a card the median of 10 round trips of an empty kernel
 (``ops.cuda_probes.empty_launch``) and a synchronise; 0 on the CPU.
 
@@ -81,6 +84,7 @@ from . import bounds, five_peak
 from .timing import device_label, host_mean
 
 REFINE_ITERS = 3
+WARMUPS = 2         # untimed calls before each row's timed ones
 ROWS = ("llc_kbdm_fit", "kbdm_sweep", "hankel_matrices m=256",
         "apply (V,m,m)@(V,m,S*k) f32", "cholqr_rinv kernel (V,S,k,k)",
         "takagi_small (V,S,k,k) [gram_svd]", "eig_cs kernel (S,V,p,p)",
@@ -237,13 +241,14 @@ def run(voxels: int = 512, reps: int = 3, device="cuda",
             print(msg, flush=True)
 
     say(f"# {label}; V={v} S={s} p={p} k={k}; {branch} power iterations; "
-        f"host clock, mean of {reps} after a warm-up")
+        f"host clock, mean of {reps} after {WARMUPS} untimed calls")
     say(f"# dispatch floor: {floor:.4f} ms (subtracted from every row)")
 
     rows: list[dict] = []
     gens = [torch.Generator(device=device).manual_seed(i) for i in range(6)]
 
-    def row(name: str, ms: float, work, note: str | None = None) -> None:
+    def row(name: str, ms: float, work, note: str | None = None,
+            runs: list | None = None) -> None:
         r = {"stage": name, "ms": ms,
              "gflops": work.flops / 1e9 if work and work.flops else None,
              "gbytes": work.bytes / 1e9 if work and work.bytes else None,
@@ -251,20 +256,25 @@ def run(voxels: int = 512, reps: int = 3, device="cuda",
              "pct_peak": 100.0 * work.light_ms / ms if work else None}
         if note:
             r["note"] = note
+        if runs is not None:
+            r["runs_ms"] = runs
         rows.append(r)
         extra = ""
         if work:
             size = (f"{work.flops / 1e9:9.2f} GF" if work.flops
                     else f"{work.bytes / 1e9:9.3f} GB")
             extra = f"  {size} = {r['pct_peak']:6.2f}% of {work.unit}"
+        if runs is not None:
+            extra += f"  runs {[round(x, 3) for x in runs]}"
         say(f"{name:44s} {ms:10.3f} ms{extra}")
 
     models = work_models(v, n, cfg)
 
     def timed(name: str, fn) -> tuple[float, object]:
-        ms, _, out = host_mean(fn, device, reps)
+        runs: list[float] = []
+        ms, _, out = host_mean(fn, device, reps, warmups=WARMUPS, runs=runs)
         ms = max(ms - floor, 1e-3)
-        row(name, ms, models[name])
+        row(name, ms, models[name], runs=runs)
         return ms, out
 
     t_full, (cons, _, _, _) = timed(ROWS[0],

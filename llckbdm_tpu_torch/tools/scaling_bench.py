@@ -129,7 +129,10 @@ def _timed(fn, device: str, reps: int = 3):
 def _rank(rank: int, n: int, rdv: str, out_dir: str, device: str,
           backend: str, voxels: int, overlap: bool) -> None:
     """One rank: fit_grid_sharded on a {'data': n} mesh, then (when
-    ``overlap``) the time-sharded refine with and without its all-reduce."""
+    ``overlap``) the time-sharded refine with and without its all-reduce.
+    On a card, rank r takes ``cuda:{r % device_count}``: every rank is
+    spawned on this host, so that index is the card's local one, which
+    distributed_init binds."""
     from ..ops import _build
     from ..parallel import (distributed_init, fit_grid_sharded, make_mesh,
                             refine_grid_timesharded)

@@ -84,11 +84,13 @@ def host_ms(fn: Callable[[], object], device, reps: int = 3) -> Timing:
 
 
 def host_mean(fn: Callable[[], object], device, reps: int = 3,
-              warmups: int = 1) -> tuple[float, float, object]:
+              warmups: int = 1,
+              runs: list | None = None) -> tuple[float, float, object]:
     """Time ``fn`` by the host clock as the JAX package's ``bench.py`` does:
     ``warmups`` untimed calls, then the mean of ``reps`` calls, each ending
     in ``torch.cuda.synchronize()`` on a CUDA device.  Returns (mean ms,
-    the first call's ms, the last call's output)."""
+    the first call's ms, the last call's output); ``runs``, where given,
+    receives each timed call's ms."""
     cuda = torch.device(device).type == "cuda"
 
     def once() -> tuple[float, object]:
@@ -105,6 +107,8 @@ def host_mean(fn: Callable[[], object], device, reps: int = 3,
     for _ in range(reps):
         ms, out = once()
         total += ms
+        if runs is not None:
+            runs.append(ms)
     return total / reps, first, out
 
 

@@ -758,3 +758,23 @@ def test_gridrunner_deleted_shard_bitwise_on_card(cuda, tmp_path):
     again = r.gather(12)
     for k in first:
         assert np.array_equal(first[k], again[k]), k
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_is_bound_to_its_card(cuda):
+    """distributed_init binds a one-rank NCCL group to cuda:0 (device_id,
+    so NCCL guesses nothing from the rank), and an all-reduce runs on it."""
+    import torch.distributed as dist
+
+    from llckbdm_tpu_torch.parallel import distributed_init
+
+    distributed_init(None, backend="nccl", device="cuda:0")
+    try:
+        group = dist.distributed_c10d._get_default_group()
+        assert group.bound_device_id == torch.device("cuda", 0)
+        x = torch.full((4,), 3.0, device=cuda)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        assert x.tolist() == [3.0] * 4
+    finally:
+        dist.destroy_process_group()

@@ -224,7 +224,24 @@ def test_profile_stages_cpu_writes_only_out(tmp_path, capsys):
     assert res["branch"] == "float32" and res["voxels"] == 1
     assert [r["stage"] for r in res["rows"]] == list(profile_stages.ROWS)
     assert all(r["ms"] > 0 for r in res["rows"])
+    assert [len(r.get("runs_ms", ())) for r in res["rows"]] == [
+        0 if "derived" in r["stage"] else 1 for r in res["rows"]]
     assert res["pipeline_pct_of_light"] > 0
+
+
+def test_profile_stages_rows_take_two_untimed_calls(monkeypatch):
+    """Every timed row (all but the derived cluster row) goes through
+    host_mean with the bench's two untimed calls."""
+    seen = []
+
+    def spy(fn, device, reps, warmups=1, runs=None):
+        seen.append(warmups)
+        return 1.0, 1.0, fn()
+
+    monkeypatch.setattr(profile_stages, "host_mean", spy)
+    res = profile_stages.run(1, 1, "cpu", verbose=False)
+    assert len(res["rows"]) == len(profile_stages.ROWS)
+    assert seen == [2] * (len(profile_stages.ROWS) - 1)
 
 
 def test_profile_stages_models_are_the_jax_tools():

@@ -227,3 +227,50 @@ def test_single_process_mesh(grid_signals):
     want = refine_grid(torch.as_tensor(grid_signals), cons, DWELL, PRCFG)
     assert torch.equal(counts, want_counts)
     assert torch.equal(refined.z, want.z) and torch.equal(refined.d, want.d)
+
+
+@pytest.mark.parametrize("backend,device,coordinator,world,want", [
+    ("nccl", "cuda:1", None, 1, ("cuda:1", "store")),
+    ("nccl", "cuda:1", "host:1234", 2, ("cuda:1", "tcp://host:1234")),
+    ("nccl", "cuda", None, 1, ("cuda:3", "store")),
+    ("nccl", "cuda", "host:1234", 2, ValueError),
+    ("gloo", "cuda:0", "host:1234", 2, (None, "tcp://host:1234")),
+    ("gloo", "cpu", None, 1, (None, "store")),
+], ids=["nccl-cuda1-one", "nccl-cuda1-tcp", "nccl-cuda-one",
+        "nccl-cuda-two-raises", "gloo-cuda0", "gloo-cpu"])
+def test_distributed_init_binds_the_card(monkeypatch, backend, device,
+                                         coordinator, world, want):
+    """What distributed_init hands torch: NCCL gets the rank's indexed card
+    as device_id (an index-less 'cuda' is the current device in one
+    process and raises across processes); gloo never gets a device_id.
+    torch itself is patched: this build has no card to bind."""
+    import torch.distributed as dist
+
+    from llckbdm_tpu_torch.parallel import distributed_init
+
+    calls, current = [], []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    if want is ValueError:
+        with pytest.raises(ValueError, match=r"pass 'cuda:<local index>'"):
+            distributed_init(coordinator, world, 0, backend=backend,
+                             device=device)
+        assert calls == [] and current == []
+        return
+    distributed_init(coordinator, world, world - 1, backend=backend,
+                     device=device)
+    device_id, rendezvous = want
+    [(got_backend, kw)] = calls
+    assert got_backend == backend
+    assert kw.get("device_id") == (device_id and torch.device(device_id))
+    assert ("device_id" in kw) == (backend == "nccl")
+    if rendezvous == "store":
+        assert isinstance(kw["store"], dist.HashStore)
+        assert (kw["rank"], kw["world_size"]) == (0, 1)
+    else:
+        assert (kw["init_method"], kw["rank"], kw["world_size"]) == (
+            rendezvous, world - 1, world)
+    cuda = torch.device(device).type == "cuda"
+    assert current == ([torch.device(device_id or device)] if cuda else [])
