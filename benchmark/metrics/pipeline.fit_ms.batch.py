@@ -1,0 +1,6 @@
+"""Median ms of llc_kbdm_fit plus a sync per batch in the traced window."""
+from benchmark import readers
+
+
+def read(rec):
+    return readers.span_ms(rec, "batch", "fit")

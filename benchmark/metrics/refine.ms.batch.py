@@ -1,0 +1,6 @@
+"""Median ms of refine_lines plus a sync per batch in the traced window."""
+from benchmark import readers
+
+
+def read(rec):
+    return readers.span_ms(rec, "batch", "refine")
