@@ -2018,12 +2018,13 @@ def f32_shift_record(c32, kcfg) -> dict:
 
 def profile_main_path(main_path, wall_ms: float) -> dict:
     """One more run of the main path under torch.profiler (CUDA activity
-    only): the device's busy time (the self time of every kernel, copy and
-    fill), the idle share of ``wall_ms`` (the unprofiled run's fit + refine
-    wall time), the busy time by kind, and the 12 largest consumers."""
+    only): the device's busy time (the union of the intervals of its
+    kernels, copies and fills), the idle share of ``wall_ms`` (the
+    unprofiled run's fit + refine wall time), the device time by kind, and
+    the 12 largest consumers."""
     from torch.profiler import ProfilerActivity, profile
 
-    from llckbdm_tpu_torch.tools.trace_capture import device_rows
+    from llckbdm_tpu_torch.tools.trace_capture import busy_ms, device_rows
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2031,7 +2032,7 @@ def profile_main_path(main_path, wall_ms: float) -> dict:
         main_path()
         window_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
-    busy = sum(r[0] for r in rows)
+    busy = busy_ms(prof)
     check(busy > 0, "torch.profiler recorded no device time")
 
     def kind(key: str) -> str:

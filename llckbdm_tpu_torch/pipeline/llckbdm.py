@@ -15,6 +15,7 @@ from ..ops.dbscan import compact_labels, dbscan, dbscan_1d, masked_median
 from ..ops.linalg import matmul_precision
 from ..signals import LineList, line_list_to_np
 from ..solver.kbdm import KbdmConfig, kbdm_sweep
+from ..spans import CLUSTER, FIT, span, spanned
 
 
 class ClusterStats(NamedTuple):
@@ -93,6 +94,7 @@ def _consolidate_one(pool: LineList, member: torch.Tensor):
 
 
 @matmul_precision()
+@spanned(FIT)
 def llc_kbdm_fit(c: torch.Tensor, dwell: float, cfg: LlcKbdmConfig,
                  omega: torch.Tensor | None = None):
     """Full LL-KBDM fit: c (..., N) complex64 -> (consolidated, pooled,
@@ -106,23 +108,25 @@ def llc_kbdm_fit(c: torch.Tensor, dwell: float, cfg: LlcKbdmConfig,
     omega        : optional sketch, passed to kbdm_sweep
     """
     sweep = kbdm_sweep(c, dwell, cfg.m_values, cfg.kbdm, omega=omega)
-    flat = LineList(*(x.reshape(*x.shape[:-2], -1) for x in sweep))
-    batch_shape, n = flat.amplitude.shape[:-1], flat.amplitude.shape[-1]
+    with span(CLUSTER):
+        flat = LineList(*(x.reshape(*x.shape[:-2], -1) for x in sweep))
+        batch_shape, n = flat.amplitude.shape[:-1], flat.amplitude.shape[-1]
 
-    feats = transform_line_lists(flat, dwell, cfg.damping_weight)
-    feats = feats.reshape(-1, n, 2)
-    pool = LineList(*(x.reshape(-1, n) for x in flat))
-    valid = pool.mask > 0.5
-    # The 1-D feature space (damping_weight == 0) takes the sorted
-    # dbscan_1d on every device; the JAX package takes the O(n^2) dbscan on
-    # a TPU even then, where sorts are slow.  The two agree except where a
-    # distance rounds to exactly eps.
-    if cfg.damping_weight == 0.0:
-        labels = dbscan_1d(feats[..., 0], valid, cfg.eps, cfg.min_samples)
-    else:
-        labels = dbscan(feats, valid, cfg.eps, cfg.min_samples)
-    member, counts = compact_labels(labels, cfg.max_clusters)
-    cons, stats = _consolidate_one(pool, member)
+        feats = transform_line_lists(flat, dwell, cfg.damping_weight)
+        feats = feats.reshape(-1, n, 2)
+        pool = LineList(*(x.reshape(-1, n) for x in flat))
+        valid = pool.mask > 0.5
+        # The 1-D feature space (damping_weight == 0) takes the sorted
+        # dbscan_1d on every device; the JAX package takes the O(n^2)
+        # dbscan on a TPU even then, where sorts are slow.  The two
+        # agree except where a distance rounds to exactly eps.
+        if cfg.damping_weight == 0.0:
+            labels = dbscan_1d(feats[..., 0], valid, cfg.eps,
+                               cfg.min_samples)
+        else:
+            labels = dbscan(feats, valid, cfg.eps, cfg.min_samples)
+        member, counts = compact_labels(labels, cfg.max_clusters)
+        cons, stats = _consolidate_one(pool, member)
 
     def unflat(x):
         return x.reshape(*batch_shape, x.shape[-1])

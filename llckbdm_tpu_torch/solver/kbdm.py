@@ -35,6 +35,7 @@ from ..ops.linalg import (PRECISIONS, hermitian_solve, matmul_precision,
                           takagi_small)
 from ..ops.powers import cpow_fixed, cpowers
 from ..signals import LineList
+from ..spans import LINES, POWITER, SWEEP, span, spanned
 
 
 @dataclass(frozen=True)
@@ -323,6 +324,7 @@ def _power_iterations_bf16(h0, x0, mk, cfg) -> torch.Tensor:
 
 
 @matmul_precision()
+@spanned(SWEEP)
 def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
                cfg: KbdmConfig, with_diag: bool = False,
                _stop: str | None = None, omega: torch.Tensor | None = None):
@@ -383,7 +385,8 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     x0 = omega[:, None, :] * mk               # (m, S, k) float32
     powiter = (_power_iterations_bf16 if bf16_power_iterations(c, cfg)
                else _power_iterations_f32)
-    y = powiter(h0, x0, mk, cfg)              # (..., m, S, k) complex64
+    with span(POWITER):
+        y = powiter(h0, x0, mk, cfg)          # (..., m, S, k) complex64
     del x0
     if _stop == "powiter":
         return y
@@ -439,7 +442,8 @@ def kbdm_sweep(c: torch.Tensor, dwell: float, m_values: Sequence[int],
     if _stop == "eig":
         return mu_s
 
-    lines = _poles_to_lines(mu_s, keep_s, c[..., None, :], dwell, n, cfg)
+    with span(LINES):
+        lines = _poles_to_lines(mu_s, keep_s, c[..., None, :], dwell, n, cfg)
     if with_diag:
         fro = torch.sqrt(torch.sum(ut.real ** 2 + ut.imag ** 2, dim=(-1, -2)))
         return lines, {"eig_offdiag_rel": eig_resid / torch.clamp(fro, min=1e-30)}

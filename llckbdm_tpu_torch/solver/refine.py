@@ -35,6 +35,7 @@ import torch.distributed as dist
 from ..ops.linalg import hermitian_solve, matmul_precision
 from ..ops.powers import cpow_fixed, cpowers
 from ..signals import LineList
+from ..spans import REFINE, STEP, span, spanned
 
 
 class RefinedLines(NamedTuple):
@@ -88,6 +89,7 @@ def _sum_over_group(g: torch.Tensor, rhs: torch.Tensor, group):
 
 
 @matmul_precision()
+@spanned(REFINE)
 def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
                  cfg: RefineConfig = RefineConfig(), *, group=None,
                  t_offset: int | None = None) -> RefinedLines:
@@ -185,9 +187,11 @@ def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
     gn_step_norm = torch.zeros_like(lines.amplitude)
     sharded = group is not None or t_offset is not None
     for _ in range(0 if sharded else cfg.f32_iters):
-        z, d, gn_step_norm = gn_step(z, d, exact=False)
+        with span(STEP):
+            z, d, gn_step_norm = gn_step(z, d, exact=False)
     for _ in range(cfg.iters):
-        z, d, gn_step_norm = gn_step(z, d, exact=True)
+        with span(STEP):
+            z, d, gn_step_norm = gn_step(z, d, exact=True)
 
     # f32 view
     z32, d32 = z.to(torch.complex64), d.to(torch.complex64)

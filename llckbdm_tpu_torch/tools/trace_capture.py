@@ -7,7 +7,8 @@ iterations of the north star's LL-KBDM fit at ``--voxels`` (or, with
 iterations), after one warm-up call.  The raw trace is kept as
 ``trace.json`` under ``--out`` (chrome://tracing, Perfetto), and the top
 device ops by total time are printed from the profiler's own tables
-(``key_averages``).
+(``key_averages``), beside the device's busy time: the union of the ops'
+intervals, so that time two ops overlap counts once.
 
     python -m llckbdm_tpu_torch.tools.trace_capture [--voxels 256] [--reps 3] [--out DIR] [--refine]
     python -m llckbdm_tpu_torch.tools.trace_capture --cpu --voxels 1 --reps 1
@@ -39,6 +40,8 @@ def device_rows(prof, cuda: bool = True) -> list[tuple[float, int, str]]:
 
     rows = []
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False):
+            continue        # a span (record_function), not an op
         if cuda:
             if e.device_type != DeviceType.CUDA:   # counted by its kernels
                 continue
@@ -53,10 +56,39 @@ def device_rows(prof, cuda: bool = True) -> list[tuple[float, int, str]]:
     return rows
 
 
-def print_top(rows, top: int = 25) -> None:
-    """The ``top`` rows of device_rows with their share of the total."""
-    total = sum(r[0] for r in rows)
-    print(f"# total device-op time {total:.3f} ms over {len(rows)} ops")
+def union_ns(intervals) -> int:
+    """The length of the union of (start, end) intervals: overlapping time
+    counts once."""
+    total, reach = 0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total
+
+
+def busy_ms(prof, cuda: bool = True) -> float:
+    """Busy ms of the device in a finished ``torch.profiler.profile``: the
+    union of the intervals of its kernels, copies and fills (or with
+    ``cuda=False`` of the CPU ops), so that kernels on two streams, or a
+    CPU op and the ops it calls, count once; spans are left out."""
+    from torch.autograd import DeviceType
+
+    kind = DeviceType.CUDA if cuda else DeviceType.CPU
+    return union_ns((e.start_ns(), e.start_ns() + e.duration_ns())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == kind
+                    and not e.is_user_annotation()) / 1e6
+
+
+def print_top(rows, total: float, top: int = 25) -> None:
+    """The ``top`` rows of device_rows with their share of ``total``, the
+    busy ms."""
+    print(f"# total device-op time {total:.3f} ms (busy: the union of the "
+          f"ops' intervals) over {len(rows)} ops")
     print(f"{'op':64s} {'total ms':>10s} {'calls':>6s} {'%':>6s}")
     for ms, calls, name in rows[:top]:
         print(f"{name[:64]:64s} {ms:10.3f} {calls:6d} "
@@ -67,7 +99,7 @@ def run(voxels: int = 256, reps: int = 3, out: str | None = None,
         refine: bool = False, device="cuda", top: int = 25,
         verbose: bool = True) -> dict:
     """Trace ``reps`` calls after one warm-up; returns the rows of
-    device_rows, the trace's path and the total device ms."""
+    device_rows, the trace's path and the busy ms (``busy_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     out = out or os.path.join(tempfile.gettempdir(), "llckbdm_trace")
@@ -102,13 +134,13 @@ def run(voxels: int = 256, reps: int = 3, out: str | None = None,
     path = os.path.join(out, "trace.json")
     prof.export_chrome_trace(path)
     rows = device_rows(prof, cuda)
+    total = busy_ms(prof, cuda)
     if verbose:
         print(f"# {device_label(device)}; traced {reps} iterations "
               f"({'refine' if refine else 'fit'}) at V={voxels} -> {path}",
               flush=True)
-        print_top(rows, top)
-    return {"rows": rows, "trace": path,
-            "total_ms": sum(r[0] for r in rows)}
+        print_top(rows, total, top)
+    return {"rows": rows, "trace": path, "total_ms": total}
 
 
 def main(argv: list[str] | None = None) -> int:

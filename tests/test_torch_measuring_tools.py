@@ -205,6 +205,15 @@ def test_trace_capture_cpu(tmp_path, capsys):
     assert "total device-op time" in out
 
 
+def test_trace_capture_busy_time_counts_overlap_once():
+    """Two overlapping intervals count their overlap once (summing the ops'
+    own times counted it twice); a disjoint third adds its length."""
+    assert trace_capture.union_ns([(0, 10), (5, 20)]) == 20
+    assert trace_capture.union_ns([(30, 40), (5, 20), (0, 10)]) == 30
+    assert trace_capture.union_ns([(0, 10), (2, 4)]) == 10
+    assert trace_capture.union_ns([]) == 0
+
+
 def test_profile_stages_cpu_writes_only_out(tmp_path, capsys):
     """Every row printed; the JSON printed as the last line and written to
     --out alone: the JAX package's PROFILE.json is left as it was."""
