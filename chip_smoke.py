@@ -11,7 +11,10 @@
    sweep) and once more at an odd size (gram_svd also at k=32; cholqr_rinv
    and chol_solve at every compiled size, at sizes padded up inside the
    kernel, and chol_solve at the 64 x 64 Gauss-Newton solve of 32
-   clusters), timed with CUDA
+   clusters; gn_normal, the refine's normal equations, at the main path's
+   (2048, 16, 512) and the brain cell's (1024, 32, 2048), a single
+   spectrum, 24 slots and a time block at t0 > 0, G on unmasked pairs
+   within 1e-5 and the rhs within 1e-6), timed with CUDA
    events (``llckbdm_tpu_torch.tools.timing.cuda_ms``: median of 5 windows
    of up to 200 launches or 100 ms; a call over 100 ms is timed once),
    beside the card's least time for the same work
@@ -32,7 +35,8 @@
    16 clusters with 6 Gauss-Newton iterations, at the card's default, the
    bfloat16 power iterations (KbdmConfig.subspace_bf16, the JAX package's
    accelerator default; the branch is printed).  Every kernel must have
-   been launched by that run and no plain version handed a CUDA tensor.
+   been launched by that run (gn_normal once per GN iteration) and no
+   plain version handed a CUDA tensor.
 4. Gates: the Jacobi off-diagonal counter below 1e-2 on 32 voxels, and the
    refined lines within 1e-8 of the float64 oracle's Gauss-Newton polish on
    the 8 voxels with the largest last GN step.  The same path and gates
@@ -76,8 +80,8 @@
    voxel but those with an exact eps tie, each timed at V=2048 with its
    peak memory.  Last, each main-path kernel at the widths of configs 2 and
    3 (eig_cs n=24, gram_svd and cholqr_rinv k=32, chol_solve 24, 48 and 64)
-   on a batch of 2048, against its plain version, timed beside its bound
-   and library call.
+   on a batch of 2048, and gn_normal at the brain cell's (1024, 32, 2048),
+   against its plain version, timed beside its bound and library call.
    Then the wide phase, on the float32 power iterations (WIDE_BF16: past
    p=16 the JAX package's accelerator algorithm, which the card's default
    runs, loses the noisy north star's lines; a record prints the default
@@ -124,8 +128,8 @@
    solves) against the single-process refinement of the same 32 slots
    (the same bounds, the 1e-8 oracle gate on its 8 worst voxels; on each
    rank, counted from 0 just before it, chol_solve launched at least 6
-   times and no plain version handed a CUDA tensor; on rank 0, which fits,
-   every main-path kernel launched); with
+   times, gn_normal exactly 6, and no plain version handed a CUDA tensor;
+   on rank 0, which fits, every main-path kernel launched); with
    data=2, time=1, fit_grid_sharded's two row blocks against the main
    path's fit (counts and masks exact, lines within 1e-4).  A failed child
    fails the script.
@@ -182,7 +186,9 @@ N, DWELL, VOXELS = 512, 5e-4, 2048
 M_VALUES = tuple(range(120, 257, 4))
 REFINE_CLUSTERS, GN_ITERS, GATE_VOXELS = 16, 6, 8
 CLOCKS_QUERY = "clocks.sm,power.draw,power.limit,temperature.gpu"
-MAIN_KERNELS = ("eig_cs", "gram_svd", "cholqr_rinv", "chol_solve")
+# the kernels of a fit, and of a fit and its refinement
+FIT_KERNELS = ("eig_cs", "gram_svd", "cholqr_rinv", "chol_solve")
+MAIN_KERNELS = FIT_KERNELS + ("gn_normal",)
 GRID_SIDE, GRID_SHARD, GRID_DELETE = 256, 2048, 3
 CONFIG5_VOXELS = 8192       # tools.config5_run's grid, cut to 4 shards
 BRAIN_N, BRAIN_DWELL, SPEC_GN_ITERS, SPEC_BATCH = 2048, 2.5e-4, 10, 2048
@@ -204,6 +210,13 @@ RECORD_P = (24, 32, 56)
 # GN iterations that must polish a wide voxel that misses the gate at
 # GN_ITERS (as the oracle's own polish takes 20)
 POLISH_ITERS = 20
+# gn_normal against its plain version, (voxels, slots, samples, t0): the
+# main path's refine, a single spectrum (one block on the card), 24 slots
+# (padded inside the 32-wide kernel) and a time block at t0 > 0; then the
+# brain cell's refine and its single spectrum at the widths of configs 2-4
+GN_SHAPES = ((VOXELS, REFINE_CLUSTERS, N, 0), (1, REFINE_CLUSTERS, N, 0),
+             (256, 24, N, 0), (16, 32, N, 300))
+GN_SPEC_SHAPES = ((1024, 32, BRAIN_N, 0), (1, 32, BRAIN_N, 0))
 BASE_LINES = np.array([
     [1.0, 0.05, -120.0, 0.1],
     [0.8, 0.08, -40.0, 0.0],
@@ -525,6 +538,7 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
                 lambda: cuda_linalg.chol_solve_plain(g, rhs, sh),
                 bounds.chol_solve(b, kk),
                 yardstick("chol_solve", g_shifted, rhs))
+    out["gn_normal"] = gn_normal_checks(GN_SHAPES)
     # amplitudes; the main path's GN (16 clusters); the configuration's own
     # GN (max_clusters=32: fit_and_refine_grid in the two-rank phase)
     out["chol_solve"] = dict(
@@ -548,6 +562,45 @@ def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
     return out
 
 
+def gn_normal_checks(shapes) -> dict:
+    """gn_normal against its plain version at each of ``shapes``: G on pairs
+    of unmasked slots within 1e-5 of its largest entry there, the rhs on
+    unmasked rows within 1e-6 of each half's largest (the powers, residual
+    and rhs are float64 on both sides, G float32 summed in another order);
+    the first shape timed beside its bound."""
+    from llckbdm_tpu_torch.ops import cuda_linalg
+    from llckbdm_tpu_torch.tools import bounds
+    from llckbdm_tpu_torch.tools.normal_checks import (normal_errors,
+                                                       normal_inputs)
+
+    rows = []
+    for v, nc, n, t0 in shapes:
+        c, z, d, mask = normal_inputs(v, nc, n, t0, seed=nc + t0,
+                                      device=DEVICE)
+        g, rhs = cuda_linalg.gn_normal(c, z, d, t0)
+        g_p, rhs_p = cuda_linalg.gn_normal_plain(c, z, d, t0)
+        eg, er = normal_errors(g, rhs, g_p, rhs_p, mask)
+        run = cuda_linalg.gn_normal_run(nc, n)
+        print(f"gn_normal ({v}, {nc}, {n}) t0={t0}, runs of {run}: G "
+              f"{eg:.3e} of its largest entry, rhs {er:.3e}", flush=True)
+        check(bool(torch.isfinite(torch.view_as_real(g)).all())
+              and eg <= 1e-5 and er <= 1e-6,
+              f"gn_normal ({v}, {nc}, {n}) t0={t0} disagrees: {eg}, {er}")
+        rows.append(dict(shape=[v, nc, n], t0=t0, g_err=eg, rhs_err=er,
+                         run=run))
+        del c, z, d, g, rhs, g_p, rhs_p
+    v, nc, n, t0 = shapes[0]
+    c, z, d, _ = normal_inputs(v, nc, n, t0, device=DEVICE)
+    return dict(shape=[v, nc, n], checks=rows,
+                tol="G 1e-5 of its largest unmasked entry; rhs 1e-6",
+                **timed(f"gn_normal ({v}, {nc}, {n})",
+                        lambda: cuda_linalg.gn_normal(c, z, d, t0),
+                        lambda: cuda_linalg.gn_normal_plain(c, z, d, t0),
+                        bounds.gn_normal(v, nc, n),
+                        (None, "no single call forms the normal equations "
+                               "of a Gauss-Newton step")))
+
+
 def spec_kernel_checks(oracle) -> dict:
     """Each main-path kernel at the widths of configs 2 and 3 (p=24, k=32),
     against its plain version and timed beside its bound and library call,
@@ -556,7 +609,8 @@ def spec_kernel_checks(oracle) -> dict:
     (46 a voxel, repeated to the batch); gram_svd, cholqr_rinv and
     chol_solve take the generators of kernel_checks.  chol_solve at 24
     (the amplitude solve, in the 32-wide kernel), 48 (the GN solve of 24
-    lines, in the 64-wide) and 64 (32 refined clusters)."""
+    lines, in the 64-wide) and 64 (32 refined clusters); gn_normal at
+    GN_SPEC_SHAPES (32 slots of N=2048)."""
     from llckbdm_tpu_torch import KbdmConfig, kbdm_sweep
     from llckbdm_tpu_torch.ops import cuda_jacobi, cuda_linalg
     from llckbdm_tpu_torch.tools import bounds
@@ -637,6 +691,7 @@ def spec_kernel_checks(oracle) -> dict:
                     lambda: cuda_linalg.chol_solve_plain(g, rhs, sh),
                     bounds.chol_solve(b, kk),
                     yardstick("chol_solve", g_shifted, rhs))))
+    out["gn_normal"] = gn_normal_checks(GN_SPEC_SHAPES)
     return out
 
 
@@ -1464,7 +1519,8 @@ def two_rank_phase(sigs, truths, cons, counts, lines, single,
               f"{prefix}: time-sharded vs single-process refine |dz|, |dd| "
               f"{errs[prefix]} (bounds 5e-9, 5e-8)")
     # fit_and_refine_grid: rank 0 fits (every kernel), both ranks take the
-    # GN_ITERS 64 x 64 solves, and no plain version ran on a CUDA tensor
+    # GN_ITERS 64 x 64 solves and normal equations, and no plain version
+    # ran on a CUDA tensor
     chain_launches = [dict(zip(MAIN_KERNELS, o["chain_launches"].tolist()))
                       for o in outs]
     for r, o in enumerate(outs):
@@ -1473,6 +1529,9 @@ def two_rank_phase(sigs, truths, cons, counts, lines, single,
         check(chain_launches[r]["chol_solve"] >= GN_ITERS,
               f"rank {r}: fit_and_refine_grid launched chol_solve "
               f"{chain_launches[r]['chol_solve']} times")
+        check(chain_launches[r]["gn_normal"] == GN_ITERS,
+              f"rank {r}: fit_and_refine_grid launched gn_normal "
+              f"{chain_launches[r]['gn_normal']} times")
     check(all(chain_launches[0][name] > 0 for name in MAIN_KERNELS),
           f"rank 0's fit_and_refine_grid launches {chain_launches[0]}")
     chain = outs[0]
@@ -1525,7 +1584,7 @@ def two_rank_phase(sigs, truths, cons, counts, lines, single,
 
 def entry_phase() -> dict:
     """entry()'s config-1 kbdm_fit step on its default device, the card:
-    16 finite line slots, every main-path kernel launched and no plain
+    16 finite line slots, every kernel of a fit launched and no plain
     version on a CUDA tensor."""
     from llckbdm_tpu_torch.entry import entry
 
@@ -1533,7 +1592,7 @@ def entry_phase() -> dict:
     fn, args = entry()
     check(args[0].is_cuda and args[0].shape == (512,),
           "entry(): the example signal is not a (512,) tensor on the card")
-    launches, out = counted_path("entry()", lambda: fn(*args))
+    launches, out = counted_path("entry()", lambda: fn(*args), FIT_KERNELS)
     check(out.amplitude.shape == (16,) and all(
         bool(torch.isfinite(x).all()) for x in out),
           f"entry(): {tuple(out.amplitude.shape)} line slots, or not finite")
@@ -1548,8 +1607,8 @@ def dryrun_phase() -> dict:
     """dryrun_multichip(8) on the one card: eight gloo ranks (NCCL refuses
     two ranks a card), mesh data=4 x time=2, one fit_and_refine_grid step
     on V=8 voxels of N=64.  The refined (8, 4) lines are finite; on every
-    rank chol_solve was launched and no plain version ran on a CUDA
-    tensor, and every rank that fits (time index 0) launched every
+    rank chol_solve and gn_normal were launched and no plain version ran on
+    a CUDA tensor, and every rank that fits (time index 0) launched every
     main-path kernel."""
     from llckbdm_tpu_torch.entry import dryrun_config, dryrun_multichip
 
@@ -1569,7 +1628,8 @@ def dryrun_phase() -> dict:
     for r, (launches, plain) in enumerate(zip(res["launches"], res["plain"])):
         check(not any(plain.values()), f"dry run rank {r}: a plain version "
               f"ran on CUDA: {plain}")
-        need = MAIN_KERNELS if res["time_ranks"][r] == 0 else ("chol_solve",)
+        need = (MAIN_KERNELS if res["time_ranks"][r] == 0
+                else ("chol_solve", "gn_normal"))
         check(all(launches.get(k, 0) > 0 for k in need),
               f"dry run rank {r}: launches {launches}")
     print(f"dry run: 8 ranks on one card, wall {wall:.2f} s (spawn "
@@ -1592,7 +1652,8 @@ def stages_phase(kcfg) -> dict:
 
     t0 = time.perf_counter()
     launches, rows = counted_path(
-        "ablate_sweep", lambda: ablate_sweep.run(VOXELS, 3, DEVICE, kcfg))
+        "ablate_sweep", lambda: ablate_sweep.run(VOXELS, 3, DEVICE, kcfg),
+        FIT_KERNELS)
     sigs, _ = five_peak.signals(VOXELS, amp_jitter=False)
     c = torch.as_tensor(sigs, device=DEVICE).to(torch.complex64)
     whole = host_ms(lambda: kbdm_sweep(c, DWELL, M_VALUES, kcfg), DEVICE)
@@ -1649,8 +1710,9 @@ def tools_phase() -> dict:
     passes both), noise_gate_sweep (8 voxels, 8 GN iterations, noise 1e-4 ..
     1e-2) and scaling_bench on 1, 2 and 4 gloo ranks of the one card (the
     data-parallel fit must issue no collective, the time-sharded refine one
-    all-reduce per GN iteration and its control none; every rank launched
-    every main-path kernel and no plain version on a CUDA tensor); then
+    all-reduce per GN iteration and its control none; every rank of the fit
+    launched every kernel of a fit and no plain version on a CUDA tensor);
+    then
     the one-rank NCCL group bound to its card (:func:`nccl_bind_phase`)."""
     from llckbdm_tpu_torch.tools import (noise_gate_sweep, scaling_bench,
                                          tune_sweeps)
@@ -1685,7 +1747,7 @@ def tools_phase() -> dict:
         for r, (launches, plain) in enumerate(zip(row["launches"],
                                                   row["plain"])):
             check(not any(plain.values())
-                  and all(launches.get(k, 0) > 0 for k in MAIN_KERNELS),
+                  and all(launches.get(k, 0) > 0 for k in FIT_KERNELS),
                   f"scaling_bench, {row['ranks']} ranks, rank {r}: launches "
                   f"{launches}, plain on CUDA {plain}")
     probe = scale["overlap_probe"]
@@ -1803,7 +1865,7 @@ def precision_tools_phase() -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         launches, trace = counted_path("trace_capture", lambda: (
-            trace_capture.run(256, 1, d, device=DEVICE, top=12)))
+            trace_capture.run(256, 1, d, device=DEVICE, top=12)), FIT_KERNELS)
         size = pathlib.Path(trace["trace"]).stat().st_size
     check(trace["rows"] and size > 0, "trace_capture: an empty trace")
     out["trace_capture"] = dict(total_ms=trace["total_ms"], trace_bytes=size,
@@ -1879,7 +1941,7 @@ def bench_phase(main_fit_ms: float) -> dict:
 
     t0 = time.perf_counter()
     launches, (rc, _, err) = counted_path("bench --saturation", lambda: (
-        captured(lambda: bench.main(["--saturation"]))))
+        captured(lambda: bench.main(["--saturation"]))), FIT_KERNELS)
     rates = [x for x in err.splitlines() if x.startswith("# saturation")]
     check(rc == 0 and len(rates) == len(bench.SATURATION_V),
           f"bench --saturation: exit {rc}, {err}")
@@ -2077,7 +2139,7 @@ def rank_kernels(results: dict) -> None:
     first those slower than their library call, the largest factor first;
     then the rest by launches x (ms - bound_ms) per main-path run.
     chol_solve runs once at the amplitude shape and GN_ITERS times at the
-    Gauss-Newton shape."""
+    Gauss-Newton shape; gn_normal GN_ITERS times."""
     slower, rest = [], []
     for name in MAIN_KERNELS:
         r = results[name]
@@ -2087,6 +2149,9 @@ def rank_kernels(results: dict) -> None:
                   f"chol_solve launched {r['launches']} times")
             loss = (r["ms"] - r["bound_ms"]) + GN_ITERS * (r["ms_gn"]
                                                             - r["bound_ms_gn"])
+        if name == "gn_normal":
+            check(r["launches"] == GN_ITERS,
+                  f"gn_normal launched {r['launches']} times")
         lib = r["library_ms"]
         factor = r["ms"] / lib if lib else None
         row = (name, factor, loss)
@@ -2275,6 +2340,9 @@ def main() -> int:
                         "llckbdm_tpu/ops/pallas_linalg.py:244"),
         "chol_solve": ("llckbdm_tpu_torch/csrc/chol.cu",
                        "llckbdm_tpu/ops/pallas_linalg.py:309"),
+        "gn_normal": ("llckbdm_tpu_torch/csrc/gn_normal.cu",
+                      "none: llckbdm_tpu/solver/refine.py leaves the "
+                      "normal equations to XLA"),
         "row_probe": ("llckbdm_tpu_torch/csrc/row_probe.cu",
                       "tools/pallas_smoke.py:11"),
         "eigh_probe": ("llckbdm_tpu_torch/csrc/eigh_probe.cu",

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "llck_cholqr_rinv": (_P, _P, _P, _I, _I, _P),
     "llck_chol_solve": (_P, _P, _P, _P, _I, _I, _P),
     "llck_chol_resources": (_I, _I, _P),
+    "llck_gn_normal": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "llck_row_probe": (_P, _P, _P, _I, _I, _I, _P),
     "llck_eigh_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "llck_empty": (_P,),

@@ -6,7 +6,10 @@ Counterpart of ``llckbdm_tpu/ops/pallas_linalg.py``:
 * :func:`cholqr_rinv` — R^{-1} of the shifted Cholesky G + shift I = R^H R
                         (``csrc/chol.cu``);
 * :func:`chol_solve`  — (G + shift I) x = b by the same Cholesky
-                        (``csrc/chol.cu``).
+                        (``csrc/chol.cu``);
+* :func:`gn_normal`   — the Gauss-Newton normal equations of one exact
+                        refine step (``csrc/gn_normal.cu``), which no TPU
+                        kernel has: the JAX package leaves them to XLA.
 
 Each wrapper sends a CUDA tensor to its kernel and a CPU tensor to its plain
 version (``*_plain``), which runs the kernel's algorithm in PyTorch — the
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .cuda_jacobi import _rr_pair
+from .powers import cpow_fixed, cpowers
 
 # The kernels' size limits (the JAX package's kernels stop at 64 too, where
 # their smallest block fills a v5e's default scoped VMEM); the plain versions
@@ -29,11 +33,13 @@ from .cuda_jacobi import _rr_pair
 MAX_K = 64        # gram_svd: two lanes a pair, two warps at k > 32;
                   # cholqr_rinv: two columns a lane, four warps at k > 32
 MAX_K_SOLVE = 64  # chol_solve: two columns a lane, four warps at k > 32
+MAX_C_NORMAL = 32  # gn_normal: slots, as far as the refine's chol_solve
 # What a caller lowers to stay inside a kernel's limit.
 _FIELD = {"gram_svd": "KbdmConfig.p + oversample",
           "cholqr_rinv": "KbdmConfig.p + oversample",
           "chol_solve": "the number of refined clusters C (2C <= 64), or "
-                        "KbdmConfig.p"}
+                        "KbdmConfig.p",
+          "gn_normal": "the number of refined clusters C"}
 
 
 def _check_square(name: str, g: torch.Tensor) -> int:
@@ -305,3 +311,130 @@ def _chol_solve_flat(g, b, shift):
         acc = y[:, i] - torch.sum(s[:, i, i + 1:] * x[:, i + 1:], dim=-1)
         x[:, i] = acc * dinv[:, i]
     return x
+
+
+# ---------------------------------------------------------------------------
+# The Gauss-Newton normal equations of one exact refine step
+# ---------------------------------------------------------------------------
+
+def _block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_n conj(a[k, n]) b[l, n] -> (..., k, l)."""
+    return a.conj() @ b.transpose(-1, -2)
+
+
+def normal_equations(p32: torch.Tensor, dj: torch.Tensor, r: torch.Tensor):
+    """G = J^H J (..., 2C, 2C) in float32 and rhs = J^H r (..., 2C) in the
+    residual's precision, for J = [P; D] given as its complex64 blocks p32
+    and dj (..., C, N) and the residual r (..., N).  G is Hermitian: its
+    (d, v) block is the conjugate transpose of the (v, d) block."""
+    gvv = _block(p32, p32)
+    gvd = _block(p32, dj)
+    gdd = _block(dj, dj)
+    g = torch.cat([torch.cat([gvv, gvd], dim=-1),
+                   torch.cat([gvd.transpose(-1, -2).conj(), gdd], dim=-1)],
+                  dim=-2)
+    jac = torch.cat([p32, dj], dim=-2).to(r.dtype)
+    rhs = (jac.conj() @ r[..., None])[..., 0]
+    return g, rhs
+
+
+def _powers_residual(c: torch.Tensor, z: torch.Tensor, d: torch.Tensor,
+                     t0: int):
+    """P[k, n] = z_k^(t0 + n) (..., C, N) and r = c - sum_k d_k P[k]
+    (..., N), both complex128."""
+    p = cpowers(z, c.shape[-1])
+    if t0:
+        # shift the local block to global time: P <- z^t0 * P
+        p = cpow_fixed(z, t0)[..., None] * p
+    return p, c - torch.sum(d[..., None] * p, dim=-2)
+
+
+def doz_of(z: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """doz_k = d_k / z_k, the scale of the Jacobian's second block, in
+    float32 from z and d rounded to complex64: d conj(z) / max(|z|^2,
+    1e-20); 0 for a masked slot (z = d = 0)."""
+    z32, d32 = z.to(torch.complex64), d.to(torch.complex64)
+    zabs2 = z32.real * z32.real + z32.imag * z32.imag
+    return d32 * z32.conj() * (1.0 / torch.clamp(zabs2, min=1e-20))
+
+
+def _gn_normal_torch(c, z, d, t0):
+    p, r = _powers_residual(c, z, d, t0)
+    p32 = p.to(torch.complex64)
+    ns = (t0 + torch.arange(c.shape[-1], device=c.device)).to(torch.float32)
+    return normal_equations(p32, doz_of(z, d)[..., None] * (ns * p32), r)
+
+
+def _check_normal(c, z, d, t0) -> None:
+    for name, x in (("c", c), ("z", z), ("d", d)):
+        if x.dtype != torch.complex128:
+            raise TypeError(f"gn_normal: {name} must be complex128, got "
+                            f"{x.dtype}")
+    if not (z.shape == d.shape and z.ndim >= 1 and z.shape[-1] >= 1
+            and c.shape[:-1] == z.shape[:-1] and c.shape[-1] >= 1):
+        raise ValueError(f"gn_normal: need c (..., N), z, d (..., C); got "
+                         f"{tuple(c.shape)}, {tuple(z.shape)}, "
+                         f"{tuple(d.shape)}")
+    if t0 < 0:
+        raise ValueError(f"gn_normal: t0 must be >= 0, got {t0}")
+
+
+def gn_normal_run(nc: int, n: int) -> int:
+    """The samples a sample group of ``csrc/gn_normal.cu`` walks from one
+    anchor, for nc slots and n samples: 64, halved to 8 at the least while
+    the block's sample groups (16 at nc <= 16, else 8) would not all have
+    a run."""
+    groups = 16 if nc <= 16 else 8
+    run = 64
+    while run > 8 and -(-n // run) < groups:
+        run //= 2
+    return run
+
+
+def gn_normal(c: torch.Tensor, z: torch.Tensor, d: torch.Tensor,
+              t0: int = 0):
+    """The normal equations of one exact Gauss-Newton step of
+    ``solver/refine.py``: G = J^H J (..., 2C, 2C) complex64 and rhs = J^H r
+    (..., 2C) complex128, before the rhs is rounded, for J = [P; D],
+    P[k, n] = z_k^(t0 + n), D[k, n] = doz_k (t0 + n) P[k, n] (doz from
+    :func:`doz_of`) and the residual r = c - sum_k d_k P[k].
+
+    c : (..., N) complex128;  z, d : (..., C) complex128, masked slots 0;
+    t0 : the block's global start (time-sharded mode).  The powers,
+    residual and rhs are float64 and G and doz float32 in both versions.  A
+    CUDA tensor goes to the kernel, which writes no per-sample tensor and
+    takes C <= 32 (past it a ValueError names the field to lower); a CPU
+    tensor runs the PyTorch code (:func:`gn_normal_plain`'s) at any C."""
+    _check_normal(c, z, d, t0)
+    nc, n = z.shape[-1], c.shape[-1]
+    cf = c.reshape(-1, n)
+    if not _launchable("gn_normal", cf, nc, MAX_C_NORMAL):
+        return _gn_normal_torch(c, z, d, t0)
+    if t0 + n >= 2 ** 31:
+        raise ValueError("gn_normal: time axis too large for one launch")
+    batch = z.shape[:-1]
+    cf = cf.contiguous()
+    zf, df = (x.reshape(-1, nc).contiguous() for x in (z, d))
+    v = cf.shape[0]
+    dev = cf.device
+    g = torch.empty((v, 2 * nc, 2 * nc), dtype=torch.complex64, device=dev)
+    rhs = torch.empty((v, 2 * nc), dtype=torch.complex128, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.llck_gn_normal(
+            cf.data_ptr(), zf.data_ptr(), df.data_ptr(), g.data_ptr(),
+            rhs.data_ptr(), v, nc, n, t0, gn_normal_run(nc, n), _stream())
+    _build.check("llck_gn_normal", err)
+    _build.LAUNCHES["gn_normal"] += 1
+    return (g.reshape(*batch, 2 * nc, 2 * nc), rhs.reshape(*batch, 2 * nc))
+
+
+def gn_normal_plain(c: torch.Tensor, z: torch.Tensor, d: torch.Tensor,
+                    t0: int = 0):
+    """The plain PyTorch version of the kernel, on any device: the powers by
+    ``cpowers`` (and ``cpow_fixed`` for t0), the residual, and G's three
+    blocks and the rhs as three products and one matvec, each a tensor of
+    the whole batch."""
+    _check_normal(c, z, d, t0)
+    _build.count_plain("gn_normal", c)
+    return _gn_normal_torch(c, z, d, t0)

@@ -17,6 +17,9 @@ The normal matrix G = J^H J and the solve stay float32, as in the JAX
 package (the correction direction only needs f32 accuracy), so the solve is
 the f32 chol_solve kernel on the (2C, 2C) normal equations.  With a few
 iterations the poles converge to the float64 least-squares fixed point.
+On the card G and the rhs of an exact step come from one kernel,
+``ops.cuda_linalg.gn_normal``, which keeps these precisions and writes no
+(..., C, N) tensor.
 
 Time-sharded mode (``group``/``t_offset``) is the counterpart of the JAX
 package's ``axis_name``/``t_offset``: each rank of a ``torch.distributed``
@@ -32,8 +35,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops import cuda_linalg
 from ..ops.linalg import hermitian_solve, matmul_precision
-from ..ops.powers import cpow_fixed, cpowers
+from ..ops.powers import cpowers
 from ..signals import LineList
 from ..spans import REFINE, STEP, span, spanned
 
@@ -68,11 +72,6 @@ class RefineConfig:
                                  # Cholesky solve has no sweeps
 
 
-def _block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum_n conj(a[k, n]) b[l, n] -> (..., k, l)."""
-    return a.conj() @ b.transpose(-1, -2)
-
-
 def _sum_over_group(g: torch.Tensor, rhs: torch.Tensor, group):
     """Sum this rank's partial G (complex64) and rhs (complex128) over the
     group by ONE all-reduce of a float64 buffer.  The rhs is summed before
@@ -103,7 +102,7 @@ def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
     ``t_offset`` its global start index; ``group`` is the
     ``torch.distributed`` process group over the time blocks, whose ranks
     hold the same voxels and bitwise-equal ``lines``.  The powers are
-    shifted to global time (P <- z^t0 P, in complex128), G and the rhs are
+    taken at global time (z^(t0 + n), in complex128), G and the rhs are
     summed over the group, and the ridge is taken from the summed G, so
     every rank takes the same steps.  ``cfg.f32_iters`` is ignored in this
     mode, as in the JAX package.
@@ -126,37 +125,19 @@ def refine_lines(c: torch.Tensor, lines: LineList, dwell: float,
     ns = (t0 + torch.arange(n, device=c.device)).to(torch.float32)
 
     def gn_step(z, d, exact):
-        z32, d32 = z.to(torch.complex64), d.to(torch.complex64)
+        # Jacobian blocks J = [P; D], D[k, n] = (d_k / z_k) * n * P[k, n]
         if exact:
-            p = cpowers(z, n)                                # (..., C, N) f64
-            if t0:
-                # shift the local block to global time: P <- z^t0 * P
-                p = cpow_fixed(z, t0)[..., None] * p
-            r = c - torch.sum(d[..., None] * p, dim=-2)      # f64 residual
-            p32 = p.to(torch.complex64)
+            # f64 powers and residual, G = J^H J in f32, rhs = J^H r in f64
+            g, rhs = cuda_linalg.gn_normal(c, z, d, t0)
         else:
             # f32 warm-start iteration: plain-f32 powers, model, residual
+            z32, d32 = z.to(torch.complex64), d.to(torch.complex64)
             p32 = cpowers(z32, n)
             r = c.to(torch.complex64) - (d32[..., None, :] @ p32)[..., 0, :]
-
-        # Jacobian blocks J = [P; D], D[k, n] = (d_k / z_k) * n * P[k, n]
-        zabs2 = z32.real * z32.real + z32.imag * z32.imag
-        inv = torch.where(mask, 1.0 / torch.clamp(zabs2, min=1e-20), 0.0)
-        doz = d32 * z32.conj() * inv
-        dj = doz[..., None] * (ns * p32)
-
-        # normal matrix G = J^H J in f32 (G is Hermitian: the (d, v) block is
-        # the conjugate transpose of the (v, d) block)
-        gvv = _block(p32, p32)
-        gvd = _block(p32, dj)
-        gdd = _block(dj, dj)
-        g = torch.cat([torch.cat([gvv, gvd], dim=-1),
-                       torch.cat([gvd.transpose(-1, -2).conj(), gdd], dim=-1)],
-                      dim=-2)
-        # rhs = J^H r, summed in the residual's precision (over the time
+            g, rhs = cuda_linalg.normal_equations(
+                p32, cuda_linalg.doz_of(z, d)[..., None] * (ns * p32), r)
+        # the rhs is summed in the residual's precision (over the time
         # blocks too), then f32
-        jac = torch.cat([p32, dj], dim=-2).to(r.dtype)
-        rhs = (jac.conj() @ r[..., None])[..., 0]
         if group is not None:
             g, rhs = _sum_over_group(g, rhs, group)
         rhs = rhs.to(torch.complex64)

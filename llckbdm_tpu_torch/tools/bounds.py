@@ -23,6 +23,13 @@ Operation counts, real flops (a complex multiply-add is 8):
 * eigh_probe: per pair ~25 for the coefficients, 18n for the two rows of S
   and 18n for the two of V (each only in the variants that rotate them),
   and 8n^2 for the two norms.
+* gn_normal, per voxel of C slots and N samples, as the kernel computes:
+  in float64 the powers (one complex multiply a (k, n) from anchors 64
+  samples apart, each ~2 log2 N multiplies), the model 8CN, the residual
+  2N and the rhs sums 12CN; in float32 the three Hermitian moments, 16
+  flops a (k <= l, n), and the scaling of G's blocks 24C^2.  The bound is
+  the largest of the float32 operations at the float32 peak, the float64
+  ones at the float64 peak and the bytes.
 
 The two Cholesky kernels are compiled at a few sizes (cholqr_rinv 16, 24,
 32, 64; chol_solve 16, 32, 48, 64) and run any other k padded up inside
@@ -34,13 +41,14 @@ Pure arithmetic on shapes: runs on any machine.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 PEAK_FLOPS = 67e12      # float32 outside the tensor cores, H100 SXM
 PEAK_BF16 = 989e12      # dense bfloat16 on the tensor cores, H100 SXM
 PEAK_F64 = 34e12        # float64 outside the tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12    # HBM3, H100 SXM
-C64, F32, I32 = 8, 4, 4  # bytes per element
+C64, F32, I32, C128 = 8, 4, 4, 16  # bytes per element
 
 
 class Bound(NamedTuple):
@@ -48,6 +56,7 @@ class Bound(NamedTuple):
     bytes: float
     ms: float           # max(flops / PEAK_FLOPS, bytes / PEAK_BYTES) in ms
     by: str             # "operations" or "bytes": the term that binds
+                        # (gn_normal: also "float64 operations")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> Bound:
@@ -101,3 +110,19 @@ def eigh_probe(batch: int, n: int, sweeps: int, do_rows: bool = True,
                                                   else 0)
     flops = batch * (_rounds(n, sweeps) * per_pair + 8 * n * n)
     return bound(flops, batch * (n * n * C64 + n * F32 + 3 * F32))
+
+
+def gn_normal(batch: int, c: int, n: int) -> Bound:
+    """c (batch, n), z and d (batch, c) complex128 in; G (batch, 2c, 2c)
+    complex64 and the rhs (batch, 2c) complex128 out.  ``flops`` is the float32 and float64 operations
+    together."""
+    bits = max(1, math.ceil(math.log2(max(n, 2))))
+    anchors = -(-n // 64) * 2 * bits
+    f64 = batch * (6 * c * (n + anchors) + 8 * c * n + 2 * n + 12 * c * n)
+    f32 = batch * (16 * c * (c + 1) // 2 * n + 24 * c * c)
+    nbytes = batch * (n * C128 + 2 * c * C128 + 4 * c * c * C64
+                      + 2 * c * C128)
+    t32, t64, tb = f32 / PEAK_FLOPS, f64 / PEAK_F64, nbytes / PEAK_BYTES
+    by = max((t32, "operations"), (t64, "float64 operations"),
+             (tb, "bytes"))[1]
+    return Bound(float(f32 + f64), float(nbytes), 1e3 * max(t32, t64, tb), by)

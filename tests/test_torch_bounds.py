@@ -4,7 +4,8 @@ time on an H100 SXM at the main path's shapes.
 The expected values are counted by hand from the shapes and sweep counts
 (production KbdmConfig: eig_sweeps 10, eigh_sweeps 7; the north star's
 p = 16, k = 24, V = 2048 voxels x 35 sweep entries = 71,680 matrices, and
-2C = 32 for the Gauss-Newton solve of 16 clusters).
+2C = 32 for the Gauss-Newton solve of 16 clusters; the refine's normal
+equations at the two benchmark cells' shapes).
 """
 import pytest
 
@@ -29,6 +30,15 @@ B = 2048 * 35
     ("chol_solve", bounds.chol_solve(B, 16), 0.685e9, 166e6, "bytes", 0.0494),
     ("chol_solve GN", bounds.chol_solve(2048, 32), 0.123e9, 17.8e6, "bytes",
      0.00532),
+    # the refine's normal equations, a step: float32 16 C(C+1)/2 N + 24 C^2
+    # (17.74e9 at the brain cell's V=1024, C=32, N=2048) and float64
+    # 26 CN + 2N + the anchors' 12 C ceil(N/64) log2 N (1.89e9); c, z, d
+    # in, G and the rhs out
+    ("gn_normal brain", bounds.gn_normal(1024, 32, 2048), 19.63e9, 69.21e6,
+     "operations", 0.2648),
+    # the five-peak cell's V=2048, C=16, N=512: 2.294e9 + 0.467e9
+    ("gn_normal five-peak", bounds.gn_normal(2048, 16, 512), 2.761e9,
+     35.65e6, "operations", 0.03424),
 ])
 def test_main_path_bounds(name, got, flops, nbytes, by, ms):
     assert got.flops == pytest.approx(flops, rel=0.02), name

@@ -29,6 +29,7 @@ from llckbdm_tpu_torch.solver import kbdm as sweep_mod
 from llckbdm_tpu_torch.solver.kbdm import KbdmConfig, kbdm_sweep
 from llckbdm_tpu_torch.solver.refine import RefineConfig, refine_lines
 from llckbdm_tpu_torch.tools import bench_eigh_variants, five_peak, kernel_smoke
+from llckbdm_tpu_torch.tools.normal_checks import normal_errors, normal_inputs
 from torch_precision_checks import (BF16_ULP, genuine, high_only_at_the_sites,
                                     hold_rows, largest_angle, logged_products)
 
@@ -644,6 +645,107 @@ def test_eigh_probe_rejects_odd_n(cuda):
     assert not _build.LAUNCHES
 
 
+# --- the refine's normal equations ---------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v, nc, n, t0", [
+    (1024, 32, 2048, 0),     # the brain cell's refine
+    (2048, 16, 512, 0),      # the five-peak cell's
+    (1, 32, 2048, 0),        # a single spectrum: one block
+    (1, 16, 512, 0),
+    (256, 24, 512, 0),       # 24 slots, padded inside the 32-wide kernel
+    (2, 17, 300, 5),
+    (16, 32, 512, 300),      # a time block at t0 = 300
+    (8, 4, 64, 0)])
+def test_gn_normal_kernel_matches_plain(cuda, v, nc, n, t0):
+    """G on pairs of unmasked slots within 1e-5 of its largest entry, the
+    rhs on unmasked rows within 1e-6 of each half's largest: the powers,
+    residual and rhs are float64 on both sides, G float32 summed in
+    another order."""
+    c, z, d, mask = normal_inputs(v, nc, n, t0, seed=nc + t0, device=cuda)
+    g, rhs = cuda_linalg.gn_normal(c, z, d, t0)
+    g_p, rhs_p = cuda_linalg.gn_normal_plain(c, z, d, t0)
+    assert dict(_build.LAUNCHES) == {"gn_normal": 1}
+    assert dict(_build.PLAIN_ON_CUDA) == {"gn_normal": 1}
+    assert g.dtype == torch.complex64 and rhs.dtype == torch.complex128
+    assert bool(torch.isfinite(torch.view_as_real(g)).all())
+    eg, er = normal_errors(g, rhs, g_p, rhs_p, mask)
+    assert eg <= 1e-5 and er <= 1e-6, (eg, er)
+
+
+@pytest.mark.cuda
+def test_gn_normal_above_32_slots_raises(cuda):
+    """C = 33 is past the kernel's limit (the refine's on the card: its
+    chol_solve takes 2C <= 64): a CUDA call raises, naming the field to
+    lower, and nothing runs."""
+    c, z, d, _ = normal_inputs(2, 33, 128, device=cuda)
+    with pytest.raises(ValueError, match=r"k <= 32.*refined clusters C"):
+        cuda_linalg.gn_normal(c, z, d)
+    assert not _build.LAUNCHES and not _build.PLAIN_ON_CUDA
+
+
+def _brain_refine_inputs(cuda, v=1024, slots=32, seed=17):
+    """v brain voxels (N=2048): the 16 lines of data/params_brain_sim.csv,
+    one frequency shift a voxel (sd 2 Hz) and amplitudes jittered 5%; the
+    initial lines off by f32-stage errors (1e-3 relative on A and T2,
+    0.05 Hz, 1e-3 rad), in slots of ``slots`` with the rest masked."""
+    import pathlib
+    csv = pathlib.Path(__file__).parent.parent / "data" / "params_brain_sim.csv"
+    rows = np.loadtxt(csv, delimiter=",", skiprows=1, usecols=(1, 2, 3, 4))
+    rng = np.random.default_rng(seed)
+    k = len(rows)
+    truth = np.repeat(rows[None], v, 0)
+    truth[..., 2] += rng.normal(scale=2.0, size=(v, 1))
+    truth[..., 0] *= 1 + 0.05 * rng.standard_normal((v, k))
+    exact = LineList(*(torch.as_tensor(truth[..., j], device=cuda)
+                       for j in range(4)),
+                     torch.ones((v, k), dtype=torch.float64, device=cuda))
+    c = sample_signal(exact, 2048, 2.5e-4)
+    init = truth * [1 + 1e-3, 1 + 1e-3, 1, 1] + [0, 0, 0.05, 1e-3]
+    full = np.zeros((v, slots, 4))
+    full[..., 1] = 1.0
+    full[:, :k] = init
+    mask = np.zeros((v, slots))
+    mask[:, :k] = 1
+    lines = LineList(*(torch.as_tensor(full[..., j], dtype=torch.float32,
+                                       device=cuda) for j in range(4)),
+                     torch.as_tensor(mask, dtype=torch.float32, device=cuda))
+    return c, lines
+
+
+@pytest.mark.cuda
+def test_refine_through_gn_normal_matches_plain(cuda, monkeypatch):
+    """refine_lines at the brain cell's shape (1024 voxels, 32 slots, N=2048,
+    10 iterations) through the kernel and through the plain version: the
+    refined poles and amplitudes agree within 1e-10, and the kernel is
+    launched once per exact iteration, never for a float32 one."""
+    from llckbdm_tpu_torch.solver import refine as refine_mod
+
+    c, lines = _brain_refine_inputs(cuda)
+    rcfg = RefineConfig(iters=10)
+    kern = refine_lines(c, lines, 2.5e-4, rcfg)
+    assert _build.LAUNCHES["gn_normal"] == rcfg.iters
+    assert not _build.PLAIN_ON_CUDA
+    with monkeypatch.context() as m:
+        m.setattr(refine_mod.cuda_linalg, "gn_normal",
+                  cuda_linalg.gn_normal_plain)
+        plain = refine_lines(c, lines, 2.5e-4, rcfg)
+    assert _build.PLAIN_ON_CUDA["gn_normal"] == rcfg.iters
+    assert _build.LAUNCHES["gn_normal"] == rcfg.iters
+    assert float((kern.z - plain.z).abs().max()) <= 1e-10
+    assert float((kern.d - plain.d).abs().max()
+                 / plain.d.abs().max()) <= 1e-10
+    assert float(kern.gn_step.max()) < 1e-9
+
+    _build.reset_counts()
+    refine_lines(c[:64], LineList(*(x[:64] for x in lines)), 2.5e-4,
+                 RefineConfig(iters=0, f32_iters=3))
+    assert "gn_normal" not in _build.LAUNCHES
+    refine_lines(c[:64], LineList(*(x[:64] for x in lines)), 2.5e-4,
+                 RefineConfig(iters=2, f32_iters=3))
+    assert _build.LAUNCHES["gn_normal"] == 2
+
+
 # --- the benchmark's entry point on the card -------------------------------
 
 @pytest.mark.cuda
@@ -678,8 +780,9 @@ def test_bench_eigensolve_launches_the_kernel_and_matches_plain(cuda):
 @pytest.mark.cuda
 def test_bench_entry_point_on_the_card(cuda, capsys):
     """bench.main at V=64 exits 0 on the card: both in-bench checks met,
-    the fit and refine launch all four main-path kernels, the eigensolve
-    eig_cs, and no plain version runs on a CUDA tensor."""
+    the fit and refine launch all five main-path kernels (gn_normal once
+    per Gauss-Newton iteration of each refine call), the eigensolve eig_cs,
+    and no plain version runs on a CUDA tensor."""
     launches = {}
     assert bench.main(["--voxels", "64", "--reps", "1", "--json-only"],
                       launches) == 0
@@ -691,7 +794,8 @@ def test_bench_entry_point_on_the_card(cuda, capsys):
     fit_refine = {**launches["fit"]["launches"],
                   **launches["refine"]["launches"]}
     assert set(fit_refine) == {"eig_cs", "gram_svd", "cholqr_rinv",
-                               "chol_solve"}
+                               "chol_solve", "gn_normal"}
+    assert launches["refine"]["launches"]["gn_normal"] % 6 == 0
     assert launches["eigensolve"]["launches"] == {"eig_cs": 2}
     assert not any(s["plain"] for s in launches.values())
 
@@ -739,18 +843,21 @@ def test_timesharded_refine_two_ranks_one_card(cuda, tmp_path):
                                rtol=0, atol=5e-8)
     for k in outs[0]:
         assert np.array_equal(outs[0][k], outs[1][k]), k
+    # each rank built each step's normal equations in the kernel
+    assert int(outs[0]["ts_gn_normal"]) == rcfg.iters
+    assert int(outs[0]["ts_gn_normal_plain"]) == 0
 
 
 @pytest.mark.cuda
 def test_gridrunner_deleted_shard_bitwise_on_card(cuda, tmp_path):
     """A deleted shard recomputed on the card gathers bit for bit as before,
-    through all four main-path kernels and no plain version."""
+    through all five main-path kernels and no plain version."""
     sigs, _ = _small_grid(v=12)
     r = GridRunner(tmp_path, DWELL, GRID_CFG, cuda, shard_size=4,
                    refine=RefineConfig(iters=3), refine_clusters=4)
     assert r.run(sigs) == 3
     assert set(_build.LAUNCHES) == {"cholqr_rinv", "gram_svd", "eig_cs",
-                                    "chol_solve"}
+                                    "chol_solve", "gn_normal"}
     assert not _build.PLAIN_ON_CUDA
     first = r.gather(12)
     (tmp_path / "shard_00000004_00000008.npz").unlink()

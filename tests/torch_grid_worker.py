@@ -72,6 +72,7 @@ def grid_ranks(rank: int, world: int, rdv: str, out_dir: str, device: str,
     refinement of ``lines`` (the whole grid's initial LineList as numpy
     arrays), fit_grid_sharded, and fit_and_refine_grid, each saved with this
     rank's rows."""
+    from llckbdm_tpu_torch.ops import _build
     from llckbdm_tpu_torch.parallel import (auto_mesh, distributed_init,
                                             fit_and_refine_grid,
                                             fit_grid_sharded, make_mesh,
@@ -105,9 +106,13 @@ def grid_ranks(rank: int, world: int, rdv: str, out_dir: str, device: str,
             lambda: refine_grid_timesharded(sigs[:, :-1], block, dwell, mesh,
                                             rcfg))
 
+        _build.reset_counts()
         refined, (start, stop) = refine_grid_timesharded(sigs, block, dwell,
                                                          mesh, rcfg)
-        out.update(_refined("ts", refined), rows=np.array([start, stop]))
+        out.update(_refined("ts", refined), rows=np.array([start, stop]),
+                   ts_gn_normal=np.array(_build.LAUNCHES["gn_normal"]),
+                   ts_gn_normal_plain=np.array(
+                       _build.PLAIN_ON_CUDA["gn_normal"]))
 
         (cons, _pooled, counts, _stats), _ = fit_grid_sharded(sigs, dwell,
                                                               cfg, mesh)
