@@ -7,18 +7,18 @@ for the cards first and prints it.  Tests call ``run_cell`` on the CPU
 
 The order of a run: signals from the seed and every shape warmed up
 (set-up, ``setup_s`` up to the first timed call); the window
-(``benchmark/loops/<kind>.py``), under ``torch.profiler`` with
-``trace=1``; the device's memory peak; with ``trace=1`` each per-layer
-metric's measurement after the window; the metrics; the sampled answers
-fetched and the program's state freed; then the reference, on the host in
-a pool of processes, and the comparison (``reference/compare.py``).
+(``benchmark/loops/<kind>.py``, loaded from ``here``), under
+``torch.profiler`` with ``trace=1``; the device's memory peak; with
+``trace=1`` each per-layer metric's measurement after the window; the
+metrics; the sampled answers fetched and the program's state freed; then
+the reference, on the host in a pool of processes, and the comparison
+(``reference/compare.py``).
 """
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
 import gc
-import importlib
 import multiprocessing
 import os
 import sys
@@ -43,6 +43,7 @@ class Record:
     window: tuple = (0.0, 0.0)       # host clock, seconds
     units: int = 0                   # voxels completed
     attempted: int = 0
+    fit_voxels: int = 0              # voxels of one llc_kbdm_fit call
     spans: dict = dataclasses.field(default_factory=dict)  # name -> [(s, e)]
     trace: trace_mod.Trace | None = None
     extra: dict = dataclasses.field(default_factory=dict)
@@ -63,6 +64,7 @@ class Ctx:
     fit_cfg: object                  # LlcKbdmConfig
     refine_cfg: object               # RefineConfig
     slots: int                       # consolidated slots refined
+    loop: object                     # benchmark/loops/<kind>.py
     state: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -158,7 +160,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     e2e, layer = spec_mod.metrics_of(spec, workload)
     chosen = layer if trace else e2e
     readers = {m["name"]: spec_mod.reader(m["name"], here) for m in chosen}
-    loop = importlib.import_module(f"benchmark.loops.{traffic['kind']}")
+    loop = spec_mod.loop(traffic["kind"], here)
 
     import torch
     import llckbdm_tpu_torch as port
@@ -169,7 +171,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     rec.setup_parts["import"] = time.perf_counter() - started + before_start
     fit_cfg, refine_cfg, slots = port_configs(port, cfg, variant)
     ctx = Ctx(config=cfg, traffic=traffic, seed=seed, device=device,
-              port=port, fit_cfg=fit_cfg, refine_cfg=refine_cfg, slots=slots)
+              port=port, fit_cfg=fit_cfg, refine_cfg=refine_cfg, slots=slots,
+              loop=loop)
     t = time.perf_counter()
     if ctx.cuda:
         torch.cuda.set_device(device)
@@ -180,6 +183,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     try:
         loop.setup(ctx, rec)
         rec.setup_s = time.perf_counter() - started + before_start
+        rec.fit_voxels = int(ctx.state["fit_input"].shape[0])
         if trace:
             out = {}
             with trace_mod.capture(ctx.cuda, out):

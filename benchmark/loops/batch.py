@@ -59,6 +59,13 @@ def window(ctx, seconds: float, rec, traced: bool) -> None:
     rec.units = rec.attempted = len(outs) * v
 
 
+def replay(ctx, i: int, rec) -> None:
+    """The ``i``-th replayed batch: the resident batches in turn."""
+    b = i % len(ctx.state["c32"])
+    fit_refine(ctx, ctx.state["c32"][b], ctx.state["c64"][b], rec,
+               traced=True)
+
+
 def failed(ctx, rec) -> int:
     return int(ctx.state["bad"].item())
 

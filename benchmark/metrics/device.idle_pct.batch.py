@@ -1,6 +1,6 @@
-"""Idle share of the device in the traced window of a batch cell."""
+"""Idle share of the device in the traced window."""
 from benchmark import readers
 
 
 def read(rec):
-    return readers.idle_pct(rec, "batch")
+    return readers.idle_pct(rec)

@@ -1,10 +1,12 @@
-"""Refined fits per second of a batch cell: voxels whose refined lines the
-port returned, over the window from the first batch's start to the last
-one's sync."""
+"""Refined fits per second: the units of work the loop completed (voxels
+whose refined lines the port returned to its caller) over the loop's
+window, from the first unit's start to the last unit's sync, or to its
+file on disk (``benchmark/loops/__init__.py``); None where the loop
+completed none."""
 from benchmark import stats
 
 
 def read(rec):
-    if rec.kind != "batch":
+    if not rec.units:
         return None
     return stats.rate(rec.units, *rec.window)

@@ -1,6 +1,7 @@
-"""Median ms of kbdm_sweep alone on one batch of the cell, as bench.py's
-stage_ms times it: after the window, one untimed call, then the host clock
-around each of three calls ended by a sync."""
+"""Median ms of kbdm_sweep alone on one call's input of the cell (the loop's
+``fit_input``), as bench.py's stage_ms times it: after the window, one
+untimed call, then the host clock around each of three calls ended by a
+sync."""
 import statistics
 import time
 
@@ -8,8 +9,6 @@ REPS = 3
 
 
 def after_window(ctx, rec):
-    if rec.kind != "batch":
-        return
     c32, cfg = ctx.state["fit_input"], ctx.fit_cfg
 
     def once():

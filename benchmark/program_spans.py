@@ -1,12 +1,14 @@
 """The program's own spans (``llckbdm.*``, ``llckbdm_tpu_torch/spans.py``)
-read on the device's timeline, for the per-layer metrics of a batch cell.
+read on the device's timeline, for the per-layer metrics of a cell whose
+loop has a ``replay`` hook (``benchmark/loops/__init__.py``).
 
 After the window (whose profile has closed), ``after_window`` replays
-``WARM + READ`` batches through ``loops.fit_refine`` under a profile of its
-own (CPU and CUDA activity), each batch inside a ``bench.replay`` range and
-ended by a sync, cycling the resident batches.  It touches neither the
-window's answers nor its count of non-finite ones.  The first batch is not
-read.  ``reduce`` then works out each read batch:
+``WARM + READ`` of the loop's units of work through its hook, one call of
+the pipeline each (a "batch" below, whatever the traffic kind), under a
+profile of its own (CPU and CUDA activity), each inside a ``bench.replay``
+range and ended by a sync.  The hook touches neither the window's answers
+nor its count of non-finite ones.  The first batch is not read.
+``reduce`` then works out each read batch:
 
 * a span's device ops are the kernels, copies and fills whose launching
   runtime call lies inside it: each op is mapped through its
@@ -21,7 +23,8 @@ read.  ``reduce`` then works out each read batch:
 * every idle gap of the device from the batch's first op to its last goes
   to the layer of the op that ends it.
 
-The parent of a program without spans reads nothing: each metric is None.
+A program without spans, a loop without the hook and a run on the CPU read
+nothing: each metric is None.
 """
 from __future__ import annotations
 
@@ -43,24 +46,24 @@ RUNTIME = "cu"      # CUDA API calls: cudaLaunchKernel, cuLaunchKernel, ...
 
 
 def after_window(ctx, rec) -> None:
-    """Replay and reduce once a run of a batch cell on the card (a CPU run
-    has no device op to read); the result is ``rec.extra["program_spans"]``,
-    one dict per read batch."""
-    if rec.kind != "batch" or not ctx.cuda or "program_spans" in rec.extra:
+    """Replay and reduce once a run on the card of a cell whose loop has
+    the ``replay`` hook (a CPU run has no device op to read); the result is
+    ``rec.extra["program_spans"]``, one dict per read batch."""
+    if (not hasattr(ctx.loop, "replay") or not ctx.cuda
+            or "program_spans" in rec.extra):
         return
     rec.extra["program_spans"] = reduce(Events.of(replay(ctx, rec)))[WARM:]
 
 
 def replay(ctx, rec) -> list:
-    """The kineto events of ``WARM + READ`` batches, each one
-    ``loops.fit_refine`` and a sync inside a ``BATCH`` range, under a
-    profile of their own; the spans the harness records go to a record of
-    their own."""
+    """The kineto events of ``WARM + READ`` batches, each the loop's
+    ``replay(ctx, i, scratch)`` and a sync inside a ``BATCH`` range, under
+    a profile of their own; the spans the harness records go to a record
+    of their own."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from . import harness, loops
+    from . import harness
 
-    c32, c64 = ctx.state["c32"], ctx.state["c64"]
     scratch = harness.Record(kind=rec.kind, config=rec.config,
                              traffic=rec.traffic)
     acts = [ProfilerActivity.CPU]
@@ -69,9 +72,8 @@ def replay(ctx, rec) -> list:
     ctx.sync()
     with profile(activities=acts) as prof:
         for i in range(WARM + READ):
-            b = i % len(c32)
             with record_function(BATCH):
-                loops.fit_refine(ctx, c32[b], c64[b], scratch, traced=True)
+                ctx.loop.replay(ctx, i, scratch)
                 ctx.sync()
     return prof.profiler.kineto_results.events()
 

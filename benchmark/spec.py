@@ -5,12 +5,14 @@
 * ``benchmark/traffic/<traffic>.json`` is the traffic mix: a ``kind``,
   which names the loop in ``benchmark/loops/<kind>.py``, and its
   parameters;
+* ``benchmark/loops/<kind>.py`` is a traffic kind's loop, with the
+  functions ``benchmark/loops/__init__.py`` lists;
 * ``benchmark/metrics/<metric>.py`` is a metric's reader, with
   ``read(rec)`` and, where the metric measures after the window,
   ``after_window(ctx, rec)``.
 
-A later change adds a configuration, a cell or a metric by adding files
-and entries; nothing here is edited for it.
+A later change adds a configuration, a traffic kind, a cell or a metric by
+adding files and entries; nothing here is edited for it.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import importlib.util
 import json
 import pathlib
 import re
+import types
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -61,12 +64,22 @@ def metrics_of(spec: dict, workload: str) -> tuple[list[dict], list[dict]]:
     return e2e, layer
 
 
-def reader(name: str, here: pathlib.Path = HERE):
-    """The module ``benchmark/metrics/<name>.py`` (its name may hold dots,
-    so it is loaded from its path)."""
-    path = here / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{re.sub(r'[^A-Za-z0-9_]', '_', name)}", path)
+def _load(module: str, path: pathlib.Path) -> types.ModuleType:
+    mod_spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
     return mod
+
+
+def reader(name: str, here: pathlib.Path = HERE) -> types.ModuleType:
+    """The module ``benchmark/metrics/<name>.py`` (its name may hold dots,
+    so it is loaded from its path)."""
+    return _load(f"benchmark_metric_{re.sub(r'[^A-Za-z0-9_]', '_', name)}",
+                 here / "metrics" / f"{name}.py")
+
+
+def loop(kind: str, here: pathlib.Path = HERE) -> types.ModuleType:
+    """The module ``benchmark/loops/<kind>.py``, loaded from its path afresh
+    on each call as a module of the package ``benchmark.loops``, so that its
+    relative imports (``from . import fit_refine``) resolve there."""
+    return _load(f"benchmark.loops.{kind}", here / "loops" / f"{kind}.py")

@@ -105,8 +105,13 @@ def test_half_of_the_batch_left_out(bench, monkeypatch):
 
 
 def test_no_result_where_nothing_is_compared(bench, monkeypatch):
-    from benchmark.loops import batch
-    monkeypatch.setattr(batch, "answers", lambda ctx: [])
+    load = spec.loop
+
+    def no_answers(kind, here):
+        loop = load(kind, here)         # a fresh module each run
+        loop.answers = lambda ctx: []
+        return loop
+    monkeypatch.setattr(spec, "loop", no_answers)
     assert not _run(bench, "five_peak_clean.batch2048")["correct"]
 
 

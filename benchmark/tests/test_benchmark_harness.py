@@ -1,9 +1,11 @@
 """The harness on the CPU: BENCHMARK.json against the rules for its names and
 keys, files found by name, the window arithmetic, the trace's busy time,
-the entry point without a card, and a cell added as files."""
+the readings of a batch cell pinned, the entry point without a card, and a
+cell and a traffic kind added as files."""
 import json
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import types
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 
 from benchmark import harness, readers, spec, stats, trace
-from benchmark.tests.helpers import small_copy
+from benchmark.tests.helpers import add_chunked_cell, small_copy
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -96,8 +98,10 @@ def test_median_of_spans():
 
 
 def _record(kind, device=(), window=1.0, busy=None):
+    """A record of the north-star cell as its batch loop fills it (one fit
+    call of 2048 voxels) with a trace of ``device`` ops."""
     rec = harness.Record(kind=kind, config=spec.config("five_peak_clean"),
-                         traffic=spec.traffic("batch2048"))
+                         traffic=spec.traffic("batch2048"), fit_voxels=2048)
     iv = np.array([(s, e) for _, s, e in device]).reshape(-1, 2)
     rec.trace = trace.Trace(window_s=window, device=list(device),
                             busy_s=(float(np.sum(np.diff(trace.merge(iv))))
@@ -110,8 +114,9 @@ def test_busy_time_counts_overlap_once():
     dev = [("a", 0.0, 0.4), ("b", 0.2, 0.5), ("c", 0.7, 0.8)]
     rec = _record("batch", dev)
     assert rec.trace.busy_s == pytest.approx(0.6)
-    assert readers.idle_pct(rec, "batch") == pytest.approx(40.0)
-    assert readers.idle_pct(rec, "other") is None
+    assert readers.idle_pct(rec) == pytest.approx(40.0)
+    rec.trace = None                     # an untraced run
+    assert readers.idle_pct(rec) is None
 
 
 def test_roofline_reads_launches_and_is_silent_without_them():
@@ -126,6 +131,140 @@ def test_roofline_reads_launches_and_is_silent_without_them():
     assert reader.read(rec) == pytest.approx(25.0)
     assert spec.reader("kernel.gram_svd.roofline_pct.batch").read(rec) is None
     assert shape["batch"] == 2048 * 35 and shape["k"] == 24
+    rec.fit_voxels = 0                   # a loop that reported no fit call
+    assert reader.read(rec) is None
+
+
+# Three replayed batches as ``program_spans.reduce`` gives them.
+BATCHES = [
+    {"ops": 12, "idle_s": 2.5, "launches": 11,
+     "layers": {"sweep": {"busy_s": 5.5, "idle_s": 0.5, "device_ms": 6000.0},
+                "cluster": {"busy_s": 1.5, "idle_s": 1.0,
+                            "device_ms": 1500.0},
+                "refine": {"busy_s": 1.0, "idle_s": 0.5, "device_ms": 1200.0},
+                "harness": {"busy_s": 0.2, "idle_s": 0.5, "device_ms": 200.0}},
+     "llckbdm.sweep.powiter": 3000.0, "llckbdm.sweep.lines": 1000.0,
+     "llckbdm.refine.step": [400.0, 300.0]},
+    {"ops": 14, "idle_s": 1.0, "launches": 13,
+     "layers": {"sweep": {"busy_s": 5.0, "idle_s": 0.25, "device_ms": 5500.0},
+                "cluster": {"busy_s": 2.0, "idle_s": 0.5,
+                            "device_ms": 2600.0},
+                "refine": {"busy_s": 1.5, "idle_s": 0.25,
+                           "device_ms": 1800.0}},
+     "llckbdm.sweep.powiter": 2800.0, "llckbdm.sweep.lines": 900.0,
+     "llckbdm.refine.step": [350.0, 380.0]},
+    {"ops": 13, "idle_s": 2.0, "launches": 12,
+     "layers": {"sweep": {"busy_s": 6.0, "idle_s": 1.0, "device_ms": 7200.0},
+                "cluster": {"busy_s": 1.0, "idle_s": 1.0,
+                            "device_ms": 2100.0},
+                "refine": {"busy_s": 2.0, "idle_s": 0.0,
+                           "device_ms": 2000.0}},
+     "llckbdm.sweep.powiter": 3100.0, "llckbdm.sweep.lines": 1100.0,
+     "llckbdm.refine.step": [500.0, 320.0]},
+]
+# two eig_cs launches (4 and 6 ms), three gram_svd launches (10, 12 and 14
+# ms) and a gemm; their union is busy 20 + 6 + 12 + 14 = 52 ms of 2 s
+DEVICE = [("void eig_cs_kernel<16>(...)", 0.010, 0.014),
+          ("void eig_cs_kernel<16>(...)", 0.500, 0.506),
+          ("void gram_svd_kernel<24>(...)", 0.020, 0.030),
+          ("void gram_svd_kernel<24>(...)", 0.600, 0.612),
+          ("void gram_svd_kernel<24>(...)", 1.100, 1.114),
+          ("ampere_cgemm_64x32", 0.012, 0.025)]
+# What each reader returned at the parent of the change that made readers
+# kind-free, on the record of ``_pinned_record``, worked out by hand.
+PINNED = {
+    "fits_per_s": 2048.0,                      # 4096 voxels / 2 s
+    "setup_s": 12.5,
+    "pipeline.fit_ms.batch": 250.0,            # median of 200, 300, 250
+    "sweep.ms.batch": 201.5,
+    "refine.ms.batch": 50.0,                   # median of 40, 50, 60
+    # 100 x the least time of one launch at 2048 x 35 matrices (eig_cs
+    # 0.83273758567 ms, gram_svd 2.64816303761 ms, benchmark/bounds.py) /
+    # the mean launch
+    "kernel.eig_cs.roofline_pct.batch": 100 * 0.8327375856716418 / 5.0,
+    "kernel.gram_svd.roofline_pct.batch": 100 * 2.6481630376119405 / 12.0,
+    "device.idle_pct.batch": 97.4,             # 100 (1 - 0.052 / 2)
+    "sweep.device_ms.batch": 6000.0,           # median of 6000, 5500, 7200
+    "sweep.powiter.device_ms.batch": 3000.0,
+    "sweep.lines.device_ms.batch": 1000.0,
+    "sweep.idle_pct.batch": 100 * 0.5 / 6.0,   # of 0.5/6, 0.25/5.25, 1/7
+    "cluster.device_ms.batch": 2100.0,
+    "cluster.idle_pct.batch": 40.0,            # of 1/2.5, 0.5/2.5, 1/2
+    "refine.step.device_ms.batch": 365.0,      # (350 + 380) / 2 of 6 steps
+    "refine.idle_pct.batch": 100 * 0.25 / 1.75,  # of 0.5/1.5, 0.25/1.75, 0
+    "device.launches.batch": 12,               # median of 11, 13, 12
+}
+
+
+def _pinned_record():
+    rec = _record("batch", DEVICE, window=2.0)
+    rec.units, rec.window, rec.setup_s = 4096, (10.0, 12.0), 12.5
+    rec.spans = {"fit": [(0.0, 0.2), (1.0, 1.3), (2.0, 2.25)],
+                 "refine": [(0.2, 0.24), (1.3, 1.35), (2.25, 2.31)]}
+    rec.extra = {"sweep_ms": 201.5, "program_spans": BATCHES}
+    return rec
+
+
+def test_every_reader_is_pinned():
+    assert set(PINNED) == {m["name"] for m in
+                           BENCH["end_to_end"] + BENCH["per_layer"]}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_batch_readings_are_pinned(name):
+    """Each reader computes from a batch record the number it computed at
+    the parent of the change that made the readers kind-free."""
+    assert spec.reader(name).read(_pinned_record()) == \
+        pytest.approx(PINNED[name], rel=1e-12)
+
+
+@pytest.fixture(scope="module")
+def captured(tmp_path_factory):
+    """The north-star cell run small on the CPU, untraced and traced, each
+    with the record the harness filled."""
+    here = small_copy(ROOT, tmp_path_factory.mktemp("pinned"))
+    out = {}
+    for traced in (False, True):
+        records = []
+
+        class Kept(harness.Record):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                records.append(self)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(harness, "Record", Kept)
+            r = harness.run_cell("five_peak_clean.batch2048", 3000000011,
+                                 0.1, traced, device="cpu", spec=BENCH,
+                                 here=here, workers=1)
+        out[traced] = (r, records[0])
+    return out
+
+
+def test_a_small_batch_run_reads_as_at_the_parent(captured):
+    """The numbers of a small CPU run, worked out from its record as the
+    parent's readers did: the rate over the window, the medians of the
+    spans, the idle share of a trace with no device op.  The device-trace
+    readers have nothing to read on the CPU."""
+    r, rec = captured[False]
+    assert r["correct"], r["checks"]
+    assert rec.kind == "batch" and rec.fit_voxels == 2
+    assert set(r["metrics"]) == {"fits_per_s", "setup_s"}
+    assert r["metrics"]["fits_per_s"]["value"] == \
+        rec.units / (rec.window[1] - rec.window[0])
+    assert rec.units == r["attempted"] and rec.units % 2 == 0
+    assert r["metrics"]["setup_s"]["value"] == rec.setup_s
+    r, rec = captured[True]
+    assert r["correct"], r["checks"]
+    assert set(r["metrics"]) == {"pipeline.fit_ms.batch", "sweep.ms.batch",
+                                 "refine.ms.batch", "device.idle_pct.batch"}
+    for name, span in (("pipeline.fit_ms.batch", "fit"),
+                       ("refine.ms.batch", "refine")):
+        assert r["metrics"][name]["value"] == \
+            1e3 * statistics.median(e - s for s, e in rec.spans[span])
+    assert r["metrics"]["sweep.ms.batch"]["value"] == rec.extra["sweep_ms"]
+    assert rec.trace.busy_s == 0.0
+    assert r["metrics"]["device.idle_pct.batch"]["value"] == 100.0
 
 
 class _Event:
@@ -234,3 +373,28 @@ def test_a_config_cell_and_metric_added_as_files(tmp_path):
     assert r["metrics"]["pipeline.fit_count.batch1"]["value"] >= 1
     assert "pipeline.fit_ms.batch" not in r["metrics"]
     assert r["device"]["platform"] == "cpu"
+
+
+def test_a_traffic_kind_added_as_files(tmp_path):
+    """A later change adds a traffic kind whose unit of work is not a batch
+    (the voxels fed to the pipeline in chunks, as a grid's shards are) by
+    adding its loop, a traffic file and a cell, and appending the cell to
+    the metrics it reports: fits_per_s and the host-clock spans read what
+    the loop reports."""
+    bench = small_copy(ROOT, tmp_path)
+    host_clock = ["pipeline.fit_ms.batch", "refine.ms.batch", "sweep.ms.batch"]
+    spec_json = add_chunked_cell(
+        bench, {"voxels": 4, "chunk": 2, "warmups": 1, "check": 2},
+        host_clock)
+    cell = "five_peak_clean.chunked"
+    r = harness.run_cell(cell, 3000000021, 0.1, False, device="cpu",
+                         spec=spec_json, here=bench, workers=1)
+    assert r["correct"], r["checks"]
+    assert set(r["metrics"]) == {"fits_per_s", "setup_s"}
+    assert r["metrics"]["fits_per_s"]["value"] > 0
+    assert r["attempted"] % 2 == 0 and r["compared"]["answers"] >= 1
+    r = harness.run_cell(cell, 3000000022, 0.1, True, device="cpu",
+                         spec=spec_json, here=bench, workers=1)
+    assert r["correct"], r["checks"]
+    assert set(host_clock) <= set(r["metrics"])
+    assert all(r["metrics"][m]["value"] > 0 for m in host_clock)
