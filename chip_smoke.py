@@ -28,14 +28,21 @@
    the second power iteration's at its 1e-4 shift and the two final
    passes' at 3e-6.  What each instantiation of the two Cholesky kernels
    takes of an SM (registers, shared and local bytes, resident warps) is
-   printed from the CUDA runtime.  After the main path, the kernels are
-   printed in the order a redesign should take them.
+   printed from the CUDA runtime.  The sweep's CholeskyQR pass
+   (``orth_pass``: csrc/orth_pass.cu's Gram and mix around cholqr_rinv, on
+   the block as stored) against its plain version at the benchmark cells'
+   shapes (the five-peak power iterations' bfloat16 pairs and final
+   passes' complex64 at (2048, 256, 35, 24), the brain cell's (1024, 300,
+   46, 32)), timed beside its bound; its own G and R^-1 held to the same
+   contract on the production blocks.  After the main path, the kernels
+   are printed in the order a redesign should take them.
 3. The main path at the bench's north-star size (V=2048 voxels, N=512,
    m = 120..256 step 4, p=16): llc_kbdm_fit, then refine_lines on the top
    16 clusters with 6 Gauss-Newton iterations, at the card's default, the
    bfloat16 power iterations (KbdmConfig.subspace_bf16, the JAX package's
    accelerator default; the branch is printed).  Every kernel must have
-   been launched by that run (gn_normal once per GN iteration) and no
+   been launched by that run (gn_normal once per GN iteration, orth_pass
+   once per CholeskyQR pass: subspace_iters + final_orth_passes) and no
    plain version handed a CUDA tensor.
 4. Gates: the Jacobi off-diagonal counter below 1e-2 on 32 voxels, and the
    refined lines within 1e-8 of the float64 oracle's Gauss-Newton polish on
@@ -189,6 +196,13 @@ CLOCKS_QUERY = "clocks.sm,power.draw,power.limit,temperature.gpu"
 # the kernels of a fit, and of a fit and its refinement
 FIT_KERNELS = ("eig_cs", "gram_svd", "cholqr_rinv", "chol_solve")
 MAIN_KERNELS = FIT_KERNELS + ("gn_normal",)
+# the sweep's CholeskyQR pass (one LAUNCHES count a pass: its Gram and mix
+# kernels around cholqr_rinv), timed at the benchmark cells' shapes:
+# (label, V, m_max, S, k, storage); entry i keeps m_max - 4 (S - 1 - i) rows
+ORTH_KERNELS = ("orth_gram", "orth_mix")
+ORTH_TIMED = (("five-peak power iterations", VOXELS, 256, 35, 24, "bf16"),
+              ("five-peak final passes", VOXELS, 256, 35, 24, "complex64"),
+              ("brain", 1024, 300, 46, 32, "complex64"))
 GRID_SIDE, GRID_SHARD, GRID_DELETE = 256, 2048, 3
 CONFIG5_VOXELS = 8192       # tools.config5_run's grid, cut to 4 shards
 BRAIN_N, BRAIN_DWELL, SPEC_GN_ITERS, SPEC_BATCH = 2048, 2.5e-4, 10, 2048
@@ -359,14 +373,17 @@ def production_gram_checks(c32: torch.Tensor, dwell: float, m_values, kcfg,
     rank-5 tests in tests/test_torch_kernels.py), with finite outputs.  On
     the bfloat16 branch the power iterations' Grams are those of its
     upcast blocks, which ``_stop="powiter"`` returns and which are formed
-    here as the sweep forms them."""
+    here as the sweep forms them.  The pass itself (``orth_pass``) is held
+    to the same contract: its own G and shift (``orth_gram``, on the block
+    in the storage the pass reads: the bfloat16 branch's pairs in its power
+    iterations) and the R^-1 cholqr_rinv forms from them ("pass")."""
     from llckbdm_tpu_torch import kbdm_sweep
     from llckbdm_tpu_torch.ops import cuda_linalg
     from llckbdm_tpu_torch.solver import kbdm
 
     k = kcfg.p + kcfg.oversample
-    powiter_shift = (kbdm.BF16_POWITER_SHIFT
-                     if kbdm.bf16_power_iterations(c32, kcfg)
+    bf16 = kbdm.bf16_power_iterations(c32, kcfg)
+    powiter_shift = (kbdm.BF16_POWITER_SHIFT if bf16
                      else kbdm.F32_POWITER_SHIFT)
     cases = (
         ("power iteration 2", powiter_shift, "powiter",
@@ -378,29 +395,97 @@ def production_gram_checks(c32: torch.Tensor, dwell: float, m_values, kcfg,
     out = {}
     for label, shift_rel, stop, case_cfg in cases:
         y = kbdm_sweep(c32, dwell, m_values, case_cfg, _stop=stop)
+        pairs = bf16 and label == "power iteration 2"
+        g_pass, sh_pass = cuda_linalg.orth_gram(
+            cuda_linalg.to_pairs(y) if pairs else y, shift_rel)
+        g_pass, sh_pass = g_pass.reshape(-1, k, k), sh_pass.reshape(-1)
         g = torch.einsum("vmsk,vmsl->vskl", y.conj(), y)
         del y
         g = (0.5 * (g + g.transpose(-1, -2).conj())).reshape(-1, k, k)
         sh = shift_rel * g.diagonal(dim1=-2, dim2=-1).real.abs().mean(-1)
         bound = 0.2 * k * float(np.finfo(np.float32).eps) / shift_rel
         errs = {}
-        for name, fn in (("kernel", cuda_linalg.cholqr_rinv),
-                         ("plain", cuda_linalg.cholqr_rinv_plain)):
-            x = fn(g, sh)
+        for name, fn, gg, ss in (
+                ("kernel", cuda_linalg.cholqr_rinv, g, sh),
+                ("plain", cuda_linalg.cholqr_rinv_plain, g, sh),
+                ("pass", cuda_linalg.cholqr_rinv, g_pass, sh_pass)):
+            x = fn(gg, ss)
             check(bool(torch.isfinite(torch.view_as_real(x)).all()),
                   f"cholqr_rinv {name}: non-finite R^-1 on the production "
                   f"Grams of {label}")
-            errs[name] = contract_error(x, g, sh)
+            errs[name] = contract_error(x, gg, ss)
         print(f"cholqr_rinv on {source}'s Grams, {label} {tuple(g.shape)}, "
               f"shift {shift_rel:g} x mean diagonal: |R^-H (G + shift I) "
               f"R^-1 - I| kernel {errs['kernel']:.3e}, plain "
-              f"{errs['plain']:.3e} (< {bound:.3e}); all finite", flush=True)
+              f"{errs['plain']:.3e}, the pass's own G "
+              f"({'bfloat16 pairs' if pairs else 'complex64'}) "
+              f"{errs['pass']:.3e} (< {bound:.3e}); all finite", flush=True)
         check(max(errs.values()) < bound,
               f"cholqr_rinv misses its contract on {source}'s Grams of "
               f"{label}: {errs}")
         out[label] = dict(shift_rel=shift_rel, bound=bound, **errs)
-        del g, x
+        del g, x, g_pass
     return out
+
+
+def orth_pass_checks() -> dict:
+    """The sweep's CholeskyQR pass (``cuda_linalg.orth_pass``:
+    csrc/orth_pass.cu's Gram and mix around cholqr_rinv) against its plain
+    version at the benchmark cells' shapes (ORTH_TIMED), on Gaussian blocks
+    masked as the sweep masks them (entry i keeps its rows below the cell's
+    m_i): G Hermitian bit for bit, masked rows exactly 0, Q within float32
+    rounding (1e-5 of its largest entry) or one bfloat16 step; timed beside
+    its bound and the plain version (no library call forms a shifted
+    CholeskyQR pass).  Returns the first row, the others under
+    "shapes"."""
+    from llckbdm_tpu_torch.ops import cuda_linalg
+    from llckbdm_tpu_torch.tools import bounds
+
+    rows = []
+    for label, v, m, s, k, storage in ORTH_TIMED:
+        gen = torch.Generator(device=DEVICE).manual_seed(m + k)
+        y = torch.randn((v, m, s, k), generator=gen, dtype=torch.complex64,
+                        device=DEVICE)
+        keep = torch.arange(m - 4 * (s - 1), m + 1, 4, device=DEVICE)
+        y *= (torch.arange(m, device=DEVICE)[:, None] < keep)[..., None]
+        x = cuda_linalg.to_pairs(y) if storage == "bf16" else y
+        del y
+        g, _ = cuda_linalg.orth_gram(x, 1e-4)
+        check(torch.equal(g, g.transpose(-1, -2).conj()),
+              f"orth_pass {label}: G is not Hermitian")
+        del g
+        q, q_p = (fn(x, 1e-4) for fn in (cuda_linalg.orth_pass,
+                                         cuda_linalg.orth_pass_plain))
+        qc, qc_p = (cuda_linalg.from_pairs(t) if storage == "bf16" else t
+                    for t in (q, q_p))
+        scale = qc_p.abs().max().item()
+        if storage == "bf16":
+            a, b = q.float(), q_p.float()
+            ok = bool(((a - b).abs() <= torch.maximum(a.abs(), b.abs())
+                       * 2.0 ** -7 + 64 * 2.0 ** -23 * scale).all())
+            err = (a - b).abs().max().item() / scale
+        else:
+            err = (qc - qc_p).abs().max().item() / scale
+            ok = err < 1e-5
+        zero = all(bool((qc[:, mm:, i, :] == 0).all())
+                   for i, mm in enumerate(keep.tolist()))
+        print(f"orth_pass {label} {(v, m, s, k)} {storage}: |Q - plain| "
+              f"{err:.3e} of its largest entry; masked rows 0: {zero}",
+              flush=True)
+        check(ok and zero, f"orth_pass {label} disagrees with its plain "
+              f"version ({err:.3e}, masked rows 0: {zero})")
+        del q, q_p, qc, qc_p
+        rows.append(dict(label=label, shape=[v, m, s, k], storage=storage,
+                         rel_err=err, **timed(
+                             f"orth_pass {label} ({v}, {m}, {s}, {k}) "
+                             f"{storage}",
+                             lambda: cuda_linalg.orth_pass(x, 1e-4),
+                             lambda: cuda_linalg.orth_pass_plain(x, 1e-4),
+                             bounds.orth_pass(v * s, m, k, storage),
+                             (None, "no library call forms a shifted "
+                                    "CholeskyQR pass"))))
+        del x
+    return {**rows[0], "shapes": rows[1:]}
 
 
 def kernel_checks(ut: torch.Tensor, ut_odd: torch.Tensor, cfg) -> dict:
@@ -2011,6 +2096,10 @@ def north_star(sigs, truths, c32, c64, cfg, rcfg) -> dict:
           f"{t_fit * 1e3:.1f} ms, refine {t_refine * 1e3:.1f} ms, "
           f"{VOXELS / (t_fit + t_refine):.1f} refined fits/s; peak "
           f"{peak_gb:.2f} GiB", flush=True)
+    passes = cfg.kbdm.subspace_iters + cfg.kbdm.final_orth_passes
+    check(launches.get("orth_pass") == passes,
+          f"{branch}: orth_pass launched {launches.get('orth_pass')} times, "
+          f"not {passes}")
     check(cons.amplitude.shape == (VOXELS, cfg.max_clusters),
           f"consolidated shape {tuple(cons.amplitude.shape)}")
     check(refined.z.shape == (VOXELS, REFINE_CLUSTERS)
@@ -2099,7 +2188,8 @@ def profile_main_path(main_path, wall_ms: float) -> dict:
 
     def kind(key: str) -> str:
         low = key.lower()
-        if any(f"{name}_kernel" in key for name in MAIN_KERNELS):
+        if any(f"{name}_kernel" in key
+               for name in MAIN_KERNELS + ORTH_KERNELS):
             return "hand-written kernels"
         if "gemm" in low:
             return "gemm"
@@ -2139,9 +2229,10 @@ def rank_kernels(results: dict) -> None:
     first those slower than their library call, the largest factor first;
     then the rest by launches x (ms - bound_ms) per main-path run.
     chol_solve runs once at the amplitude shape and GN_ITERS times at the
-    Gauss-Newton shape; gn_normal GN_ITERS times."""
+    Gauss-Newton shape; gn_normal GN_ITERS times; orth_pass (timed at the
+    power iterations' bfloat16 shape) once a CholeskyQR pass."""
     slower, rest = [], []
-    for name in MAIN_KERNELS:
+    for name in MAIN_KERNELS + ("orth_pass",):
         r = results[name]
         loss = r["launches"] * (r["ms"] - r["bound_ms"])
         if name == "chol_solve":
@@ -2210,6 +2301,7 @@ def main() -> int:
                         _stop="reduced")
     results = kernel_checks(ut, ut_odd, cfg.kbdm)
     del ut, ut_odd
+    results["orth_pass"] = orth_pass_checks()
     results["cholqr_rinv"]["production_grams"] = production_gram_checks(
         c32, DWELL, cfg.m_values, cfg.kbdm, "the north star")
 
@@ -2343,6 +2435,10 @@ def main() -> int:
         "gn_normal": ("llckbdm_tpu_torch/csrc/gn_normal.cu",
                       "none: llckbdm_tpu/solver/refine.py leaves the "
                       "normal equations to XLA"),
+        "orth_pass": ("llckbdm_tpu_torch/csrc/orth_pass.cu",
+                      "none: llckbdm_tpu/solver/kbdm.py forms the "
+                      "CholeskyQR pass's Gram and mix as einsums, left to "
+                      "XLA"),
         "row_probe": ("llckbdm_tpu_torch/csrc/row_probe.cu",
                       "tools/pallas_smoke.py:11"),
         "eigh_probe": ("llckbdm_tpu_torch/csrc/eigh_probe.cu",

@@ -43,6 +43,9 @@ _SIGNATURES = {
     "llck_chol_solve": (_P, _P, _P, _P, _I, _I, _P),
     "llck_chol_resources": (_I, _I, _P),
     "llck_gn_normal": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "llck_orth_gram": (_P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                       _P, _P, _P),
+    "llck_orth_mix": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "llck_row_probe": (_P, _P, _P, _I, _I, _I, _P),
     "llck_eigh_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "llck_empty": (_P,),

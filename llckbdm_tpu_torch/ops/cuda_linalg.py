@@ -9,7 +9,12 @@ Counterpart of ``llckbdm_tpu/ops/pallas_linalg.py``:
                         (``csrc/chol.cu``);
 * :func:`gn_normal`   — the Gauss-Newton normal equations of one exact
                         refine step (``csrc/gn_normal.cu``), which no TPU
-                        kernel has: the JAX package leaves them to XLA.
+                        kernel has: the JAX package leaves them to XLA;
+* :func:`orth_pass`   — the sweep's shifted CholeskyQR pass over a block as
+                        stored, complex64 or bfloat16 pairs: its Gram
+                        (:func:`orth_gram`) and mix (:func:`orth_mix`) in
+                        ``csrc/orth_pass.cu`` around :func:`cholqr_rinv`;
+                        no TPU kernel either (XLA's einsums there).
 
 Each wrapper sends a CUDA tensor to its kernel and a CPU tensor to its plain
 version (``*_plain``), which runs the kernel's algorithm in PyTorch — the
@@ -37,6 +42,7 @@ MAX_C_NORMAL = 32  # gn_normal: slots, as far as the refine's chol_solve
 # What a caller lowers to stay inside a kernel's limit.
 _FIELD = {"gram_svd": "KbdmConfig.p + oversample",
           "cholqr_rinv": "KbdmConfig.p + oversample",
+          "orth_pass": "KbdmConfig.p + oversample",
           "chol_solve": "the number of refined clusters C (2C <= 64), or "
                         "KbdmConfig.p",
           "gn_normal": "the number of refined clusters C"}
@@ -438,3 +444,219 @@ def gn_normal_plain(c: torch.Tensor, z: torch.Tensor, d: torch.Tensor,
     _check_normal(c, z, d, t0)
     _build.count_plain("gn_normal", c)
     return _gn_normal_torch(c, z, d, t0)
+
+
+# ---------------------------------------------------------------------------
+# The sweep's CholeskyQR pass over a (..., m, S, k) block as stored
+# ---------------------------------------------------------------------------
+
+def to_pairs(q: torch.Tensor) -> torch.Tensor:
+    """(..., m, S, j) complex64 -> (..., 2m, S, j) bfloat16 real pairs, the
+    real parts over the imaginary ones, each rounded once."""
+    m = q.shape[-3]
+    out = torch.empty((*q.shape[:-3], 2 * m, *q.shape[-2:]),
+                      dtype=torch.bfloat16, device=q.device)
+    out[..., :m, :, :].copy_(q.real)
+    out[..., m:, :, :].copy_(q.imag)
+    return out
+
+
+def from_pairs(yb: torch.Tensor) -> torch.Tensor:
+    """(..., 2m, S, j) bfloat16 real pairs -> (..., m, S, j) complex64
+    (exact)."""
+    m = yb.shape[-3] // 2
+    y = torch.empty((*yb.shape[:-3], m, *yb.shape[-2:]),
+                    dtype=torch.complex64, device=yb.device)
+    yr = torch.view_as_real(y)
+    yr[..., 0].copy_(yb[..., :m, :, :])
+    yr[..., 1].copy_(yb[..., m:, :, :])
+    return y
+
+
+def orth_gram_groups(k: int) -> int:
+    """The row groups of ``csrc/orth_pass.cu``'s Gram at k columns: 4, 2 or
+    1, as many as fit a 256-thread block with one 4 x 4 tile of the upper
+    triangle of G a thread (k <= 40: 4; k <= 56: 2; 64: 1).  Group g sums
+    the rows r = g mod groups; the partial sums are added by a tree."""
+    nb = -(-k // 4)
+    tiles = nb * (nb + 1) // 2
+    for groups in (4, 2):
+        if groups * tiles <= 256:
+            return groups
+    return 1
+
+
+def _orth_check(name: str, y: torch.Tensor) -> tuple[bool, int]:
+    """The storage a pass takes: (pairs, m) for complex64 (..., m, S, k) or
+    bfloat16 pairs (..., 2m, S, k)."""
+    if y.ndim < 3 or min(y.shape[-3:]) < 1:
+        raise ValueError(f"{name}: need (..., m, S, k), got {tuple(y.shape)}")
+    if y.dtype == torch.complex64:
+        return False, y.shape[-3]
+    if y.dtype == torch.bfloat16:
+        if y.shape[-3] % 2:
+            raise ValueError(f"{name}: bfloat16 pairs need an even row count, "
+                             f"got {y.shape[-3]}")
+        return True, y.shape[-3] // 2
+    raise TypeError(f"{name}: need complex64 or bfloat16 pairs, got {y.dtype}")
+
+
+def _orth_strides(t: torch.Tensor, pairs: bool, m: int):
+    """A (V, rows, S, k) block's strides {sv, sr, ss, si} (si: the
+    imaginary parts' offset, m rows, for pairs) as a ctypes array."""
+    sv, sr, ss = t.stride(0), t.stride(1), t.stride(2)
+    return (ctypes.c_longlong * 4)(sv, sr, ss, m * sr if pairs else 0)
+
+
+def _orth_vec(pairs: bool, *blocks) -> int:
+    """The entries a load or store of the kernels moves: the largest that
+    divides k, every block's strides and its base's alignment."""
+    for vec in ((8, 4, 2) if pairs else (2,)):
+        if all(b.shape[-1] % vec == 0 and all(x % vec == 0 for x in st)
+               and b.data_ptr() % (vec * b.element_size()) == 0
+               for b, st in blocks):
+            return vec
+    return 1
+
+
+def _orth_block(y: torch.Tensor) -> torch.Tensor:
+    """y as the kernels read it: (V, rows, S, k), its last axis
+    contiguous."""
+    y4 = y.reshape(-1, *y.shape[-3:])
+    return y4 if y4.stride(-1) == 1 else y4.contiguous()
+
+
+def _orth_complex(y: torch.Tensor, pairs: bool) -> torch.Tensor:
+    return from_pairs(y) if pairs else y
+
+
+def orth_gram(y: torch.Tensor, shift_rel: float):
+    """G = Y^H Y of every (m, k) block of y, Hermitian with a real diagonal,
+    and the shift shift_rel x mean_j |G[j, j]|.
+
+    y : complex64 (..., m, S, k) or bfloat16 pairs (..., 2m, S, k), the
+    real parts over the imaginary ones, in any layout whose last axis is
+    contiguous.  Returns G (..., S, k, k) complex64 and the shift (..., S)
+    float32.  A CUDA tensor goes to ``csrc/orth_pass.cu``'s Gram (k <= 64,
+    past it a ValueError names the field to lower; its launch counts with
+    the pass's in ``LAUNCHES["orth_pass"]`` where :func:`orth_pass` calls
+    it); a CPU tensor to the plain version."""
+    pairs, m = _orth_check("orth_gram", y)
+    s_, k = y.shape[-2:]
+    if not _launchable("orth_pass", y, k, MAX_K):
+        return _orth_gram_torch(_orth_complex(y, pairs), shift_rel)
+    y4 = _orth_block(y)
+    strides = _orth_strides(y4, pairs, m)
+    nv = y4.shape[0]
+    g = torch.empty((nv, s_, k, k), dtype=torch.complex64, device=y.device)
+    shift = torch.empty((nv, s_), dtype=torch.float32, device=y.device)
+    lib = _build.library()
+    with torch.cuda.device(y.device):
+        err = lib.llck_orth_gram(y4.data_ptr(), ctypes.addressof(strides),
+                                 int(pairs), _orth_vec(pairs, (y4, strides)),
+                                 nv, m, s_, k, orth_gram_groups(k),
+                                 float(shift_rel), g.data_ptr(),
+                                 shift.data_ptr(), _stream())
+    _build.check("llck_orth_gram", err)
+    batch = y.shape[:-3]
+    return g.reshape(*batch, s_, k, k), shift.reshape(*batch, s_)
+
+
+def _orth_out(y4: torch.Tensor, pairs: bool) -> torch.Tensor:
+    """The mix's output for a (V, rows, S, k) block, in the layout the
+    sweep's readers take: pairs contiguous (the layout ``to_pairs`` gives,
+    which the bfloat16 branch's Hankel apply flattens), complex64 with each
+    entry's rows together, (V, S, m, k) in memory (the layout of the
+    einsum the pass replaces, whose later products take it as it is)."""
+    nv, rows, s_, k = y4.shape
+    if pairs:
+        return torch.empty(y4.shape, dtype=y4.dtype, device=y4.device)
+    return torch.empty((nv, s_, rows, k), dtype=y4.dtype,
+                       device=y4.device).transpose(1, 2)
+
+
+def orth_mix(y: torch.Tensor, x: torch.Tensor,
+             conj: bool = False) -> torch.Tensor:
+    """Q = Y X per (m, k) block, in y's storage (bfloat16 pairs rounded
+    once, to nearest even), or its conjugate where ``conj``; laid out as
+    the sweep's readers take it (:func:`_orth_out`).  y as for
+    :func:`orth_gram`; x (..., S, k, k) complex64 upper triangular.  A
+    CUDA tensor goes to ``csrc/orth_pass.cu``'s mix, a CPU tensor to the
+    plain version."""
+    pairs, m = _orth_check("orth_mix", y)
+    s_, k = y.shape[-2:]
+    if x.dtype != torch.complex64 or x.shape != (*y.shape[:-3], s_, k, k):
+        raise ValueError(f"orth_mix: x must be complex64 "
+                         f"{(*y.shape[:-3], s_, k, k)}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not _launchable("orth_pass", y, k, MAX_K):
+        q = _mix_torch(_orth_complex(y, pairs), x)
+        if conj:
+            q = q.conj()
+        return to_pairs(q) if pairs else q.resolve_conj()
+    y4 = _orth_block(y)
+    q = _orth_out(y4, pairs)
+    strides, out_strides = (_orth_strides(t, pairs, m) for t in (y4, q))
+    xf = x.reshape(-1, k, k).contiguous()
+    lib = _build.library()
+    with torch.cuda.device(y.device):
+        err = lib.llck_orth_mix(
+            y4.data_ptr(), ctypes.addressof(strides), q.data_ptr(),
+            ctypes.addressof(out_strides), int(pairs),
+            _orth_vec(pairs, (y4, strides), (q, out_strides)), int(conj),
+            y4.shape[0], m, s_, k, xf.data_ptr(), _stream())
+    _build.check("llck_orth_mix", err)
+    return q.reshape(y.shape)
+
+
+def orth_pass(y: torch.Tensor, shift_rel: float,
+              conj: bool = False) -> torch.Tensor:
+    """One shifted CholeskyQR pass over the k columns of every (m, S) block
+    of y, in y's storage: Q = Y R^-1 with G + shift I = R^H R, G = Y^H Y
+    and the shift shift_rel x G's mean diagonal (:func:`orth_gram`,
+    :func:`cholqr_rinv`, :func:`orth_mix`), or Q's conjugate where
+    ``conj``.  y : complex64 (..., m, S, k) or bfloat16 pairs (..., 2m, S,
+    k).  On a CUDA tensor three launches, counted once in
+    ``LAUNCHES["orth_pass"]`` (and cholqr_rinv's in its own); on a CPU
+    tensor the plain versions."""
+    g, shift = orth_gram(y, shift_rel)
+    q = orth_mix(y, cholqr_rinv(g, shift), conj)
+    if y.is_cuda:
+        _build.LAUNCHES["orth_pass"] += 1
+    return q
+
+
+def orth_pass_plain(y: torch.Tensor, shift_rel: float) -> torch.Tensor:
+    """The plain PyTorch version of the pass, on any device: the kernels'
+    algorithm (pairs widened exactly, the row groups' Grams added by the
+    tree, the upper triangle mirrored with a real diagonal, the product
+    with R^-1 rounded back to pairs once)."""
+    pairs, _ = _orth_check("orth_pass", y)
+    _build.count_plain("orth_pass", y)
+    yc = _orth_complex(y, pairs)
+    g, shift = _orth_gram_torch(yc, shift_rel)
+    q = _mix_torch(yc, _cholqr_flat(g.reshape(-1, *g.shape[-2:]),
+                                    shift.reshape(-1)).reshape(g.shape))
+    return to_pairs(q) if pairs else q
+
+
+def _orth_gram_torch(yc: torch.Tensor, shift_rel: float):
+    """The Gram's algorithm on a complex64 block: per row group (rows g mod
+    groups) a float32 product, the groups added by the tree, the strict
+    upper triangle mirrored, the diagonal's real part."""
+    groups = orth_gram_groups(yc.shape[-1])
+    parts = [torch.einsum("...msk,...msl->...skl", yc[..., g::groups, :, :]
+                          .conj(), yc[..., g::groups, :, :])
+             for g in range(groups)]
+    while len(parts) > 1:
+        h = len(parts) // 2
+        parts = [parts[i] + parts[i + h] for i in range(h)]
+    upper = torch.triu(parts[0], 1)
+    d = torch.diagonal(parts[0], dim1=-2, dim2=-1).real
+    g = upper + upper.transpose(-1, -2).conj() + torch.diag_embed(
+        d.to(torch.complex64))
+    return g, shift_rel * torch.mean(torch.abs(d), dim=-1)
+
+
+def _mix_torch(yc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...msk,...skl->...msl", yc, x)

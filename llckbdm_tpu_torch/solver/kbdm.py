@@ -3,9 +3,10 @@
 The same math as the JAX solver's TPU path, on native complex tensors:
 
 * the truncated SVD of the m x m Hankel U0 by randomized subspace iteration,
-  each basis orthonormalized by shifted CholeskyQR (the cholqr_rinv kernel),
-  then a Rayleigh-Ritz Takagi step on the k x k projection (the gram_svd
-  kernel);
+  each basis orthonormalized by shifted CholeskyQR (on the card one
+  hand-written pass over the block as stored, its R^-1 by the cholqr_rinv
+  kernel), then a Rayleigh-Ritz Takagi step on the k x k projection (the
+  gram_svd kernel);
 * the reduced p x p matrix formed without building U1 (Hankel shift
   structure), its eigenvalues by complex-symmetric Jacobi (the eig_cs kernel);
 * Vandermonde least-squares amplitudes from the closed-form geometric Gram
@@ -195,16 +196,29 @@ def _apply(h0: torch.Tensor, x: torch.Tensor, mk: torch.Tensor,
     return y.reshape(*y.shape[:-1], ns, j).mul_(mk)
 
 
-def _orth_pass(q: torch.Tensor, shift_rel: float,
-               precision: str) -> torch.Tensor:
-    """One shifted CholeskyQR pass over the k columns of every (m, S) block,
-    with a diagonal shift of shift_rel times the Gram's mean diagonal.  The
-    caller rebinds its name to the result, which frees the input."""
+def _orth_pass(y: torch.Tensor, shift_rel: float, precision: str = "highest",
+               conj: bool = False) -> torch.Tensor:
+    """One shifted CholeskyQR pass over the k columns of every (m, S) block
+    of y, with a diagonal shift of shift_rel times the Gram's mean
+    diagonal, in y's storage: complex64 (..., m, S, k) or bfloat16 real
+    pairs (..., 2m, S, k); the result's conjugate where ``conj``.  On a
+    CUDA tensor at "highest" the hand-written pass (``cuda_linalg.
+    orth_pass``: the block read and written as stored); else the JAX
+    package's einsums at ``precision``, a pair block widened to complex64
+    and the result rounded back.  The caller rebinds its name to the
+    result, which frees the input."""
+    if y.is_cuda and precision == "highest":
+        return cuda_linalg.orth_pass(y, shift_rel, conj)
+    pairs = y.dtype == torch.bfloat16
+    q = cuda_linalg.from_pairs(y) if pairs else y
     g = _gram_sk(q, q, precision)
     g = 0.5 * (g + g.transpose(-1, -2).conj())
     shift = shift_rel * torch.mean(
         torch.abs(torch.diagonal(g, dim1=-2, dim2=-1).real), dim=-1)
-    return _mix_sk(q, cuda_linalg.cholqr_rinv(g, shift), precision)
+    q = _mix_sk(q, cuda_linalg.cholqr_rinv(g, shift), precision)
+    if conj:
+        q = q.conj()
+    return cuda_linalg.to_pairs(q) if pairs else q.resolve_conj()
 
 
 # Power iterations take one CholeskyQR pass each: the basis only has to
@@ -246,29 +260,6 @@ def _power_iterations_f32(h0, x0, mk, cfg) -> torch.Tensor:
     return y
 
 
-def _to_pairs(q: torch.Tensor) -> torch.Tensor:
-    """(..., m, S, j) complex64 -> (..., 2m, S, j) bfloat16 real pairs, the
-    real parts over the imaginary ones, each rounded once."""
-    m = q.shape[-3]
-    out = torch.empty((*q.shape[:-3], 2 * m, *q.shape[-2:]),
-                      dtype=torch.bfloat16, device=q.device)
-    out[..., :m, :, :].copy_(q.real)
-    out[..., m:, :, :].copy_(q.imag)
-    return out
-
-
-def _from_pairs(yb: torch.Tensor) -> torch.Tensor:
-    """(..., 2m, S, j) bfloat16 real pairs -> (..., m, S, j) complex64
-    (exact)."""
-    m = yb.shape[-3] // 2
-    y = torch.empty((*yb.shape[:-3], m, *yb.shape[-2:]),
-                    dtype=torch.complex64, device=yb.device)
-    yr = torch.view_as_real(y)
-    yr[..., 0].copy_(yb[..., :m, :, :])
-    yr[..., 1].copy_(yb[..., m:, :, :])
-    return y
-
-
 def _power_iterations_bf16(h0, x0, mk, cfg) -> torch.Tensor:
     """The bfloat16 branch (the JAX package's kbdm.py:354-410): bfloat16
     storage of the blocks and of the Hankel operator, products with float32
@@ -277,9 +268,12 @@ def _power_iterations_bf16(h0, x0, mk, cfg) -> torch.Tensor:
     operator as the real (2m, 2m) block [[Re, -Im], [Im, Re]]: one bfloat16
     GEMM per apply, accumulated in float32 and rounded to bfloat16 once,
     as the JAX program's ``(mmf(re, re) - mmf(im, im)).astype(bf16)``.
-    Each CholeskyQR pass forms the Gram in float32 from the upcast block
-    (exact products of bfloat16 values, float32 sums), with the 1e-4 shift,
-    through the cholqr_rinv kernel.  Always at "highest", whatever
+    Each CholeskyQR pass (``_orth_pass`` on the pairs) forms the Gram in
+    float32 from the pairs widened exactly (exact products of bfloat16
+    values, float32 sums), with the 1e-4 shift, R^-1 by the cholqr_rinv
+    kernel, and the product with R^-1 in float32, rounded to bfloat16 once
+    (the JAX program states it in float32: bf16 times float32 promotes; the
+    TPU ran it as one bfloat16 pass).  Always at "highest", whatever
     cfg.mxu_precision says, as in the JAX package.  Returns the last block
     upcast to complex64."""
     m = h0.shape[-1]
@@ -290,37 +284,29 @@ def _power_iterations_bf16(h0, x0, mk, cfg) -> torch.Tensor:
     op[..., :m, m:].copy_(h0.imag).neg_()
     op[..., m:, :m].copy_(h0.imag)
     op[..., m:, m:].copy_(h0.real)
-    # the mask on both halves, and on the conjugate (imaginary half negated)
+    # the mask on both halves of an apply's output
     mk2 = torch.cat([mk, mk]).to(bf)
-    mk2c = torch.cat([mk, -mk]).to(bf)
 
-    def apply(xb, mask):
-        xm = xb * mask
-        j = xm.shape[-1]
-        y = op @ xm.reshape(*xm.shape[:-2], ns * j)
-        del xm
+    def apply(xb):
+        """op xb, masked; xb already masked (and conjugated where it is a
+        pass's result): a product with the conjugate's mask [mk, -mk]
+        would leave each of its bits as it is (its rows past m are
+        zeros)."""
+        j = xb.shape[-1]
+        y = op @ xb.reshape(*xb.shape[:-2], ns * j)
         return y.reshape(*y.shape[:-1], ns, j).mul_(mk2)
 
+    # the sketch is masked already (x0 = omega mk)
     x0b = torch.cat([x0, torch.zeros_like(x0)]).to(bf)
-    yb = apply(x0b, mk2)
+    yb = apply(x0b)
     del x0b
     for _ in range(cfg.subspace_iters):
-        y = _from_pairs(yb)
+        qb = _orth_pass(yb, BF16_POWITER_SHIFT, conj=True)
         del yb
-        g = _gram_sk(y, y)
-        g = 0.5 * (g + g.transpose(-1, -2).conj())
-        shift = BF16_POWITER_SHIFT * torch.mean(
-            torch.abs(torch.diagonal(g, dim1=-2, dim2=-1).real), dim=-1)
-        # the JAX program states this product in float32 (bf16 times
-        # float32 promotes); the TPU ran it as one bfloat16 pass
-        q = _mix_sk(y, cuda_linalg.cholqr_rinv(g, shift))
-        del y, g
-        qb = _to_pairs(q)
-        del q
-        yb = apply(qb, mk2c)
+        yb = apply(qb)
         del qb
     del op
-    return _from_pairs(yb)
+    return cuda_linalg.from_pairs(yb)
 
 
 @matmul_precision()

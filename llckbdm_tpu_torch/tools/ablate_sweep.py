@@ -87,13 +87,12 @@ def stage_model(v: int, n: int, m_values, cfg: KbdmConfig,
                (1 + it) * hank + (1 + 2 * it) * blk + it * orth[1])
     if bf16:
         # the (2m, 2m) bfloat16 operator (as many bytes as the complex64
-        # one) built from h0; each pass upcasts its block (bf16 read,
-        # complex64 write), Gram and mix as above, and rounds the result
-        # back to pairs (complex64 read, bf16 write)
+        # one) built from h0; each pass reads its pairs for the Gram and
+        # the mix and writes its result as pairs (the operations as above)
         blk_bf = blk / 2
         powiter = ((1 + it) * apply + it * orth[0],
                    2 * hank + (1 + it) * hank + (1 + 2 * it) * blk_bf
-                   + it * (2 * blk_bf + 2 * blk + orth[1]))
+                   + it * (3 * blk_bf + chol.bytes))
     return {
         "hankel": (0.0, v * n * 8 + hank),
         "powiter": powiter,

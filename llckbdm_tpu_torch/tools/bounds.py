@@ -30,6 +30,13 @@ Operation counts, real flops (a complex multiply-add is 8):
   flops a (k <= l, n), and the scaling of G's blocks 24C^2.  The bound is
   the largest of the float32 operations at the float32 peak, the float64
   ones at the float64 peak and the bytes.
+* orth_pass, the sweep's CholeskyQR pass over one (m, k) block: its Gram's
+  Hermitian half, 8 flops a (j <= l, row), the Cholesky factor and its
+  triangular inverse (cholqr_rinv's 8k^3/3) and the product with the
+  upper-triangular R^-1, 8 flops a (j <= l, row).  Its bytes are the block
+  read once and its result written once, in the block's storage (complex64
+  or bfloat16 pairs): G, the shift and R^-1 are a pass's own intermediates,
+  and the kernels reading the block twice is their cost, not the work's.
 
 The two Cholesky kernels are compiled at a few sizes (cholqr_rinv 16, 24,
 32, 64; chol_solve 16, 32, 48, 64) and run any other k padded up inside
@@ -126,3 +133,17 @@ def gn_normal(batch: int, c: int, n: int) -> Bound:
     by = max((t32, "operations"), (t64, "float64 operations"),
              (tb, "bytes"))[1]
     return Bound(float(f32 + f64), float(nbytes), 1e3 * max(t32, t64, tb), by)
+
+
+ORTH_STORAGE = {"complex64": C64, "bf16": 2 * 2}  # bytes an entry
+
+
+def orth_pass(batch: int, m: int, k: int, storage: str) -> Bound:
+    """batch (m, k) blocks in ``storage`` ("complex64", or "bf16": bfloat16
+    real pairs) in; the orthonormalized blocks out, in the same storage."""
+    if storage not in ORTH_STORAGE:
+        raise ValueError(f"orth_pass: storage {storage!r}, not one of "
+                         f"{sorted(ORTH_STORAGE)}")
+    half = k * (k + 1) // 2
+    flops = batch * (2 * 8 * half * m + 8 * k ** 3 / 3)
+    return bound(flops, batch * 2 * m * k * ORTH_STORAGE[storage])

@@ -39,6 +39,19 @@ B = 2048 * 35
     # the five-peak cell's V=2048, C=16, N=512: 2.294e9 + 0.467e9
     ("gn_normal five-peak", bounds.gn_normal(2048, 16, 512), 2.761e9,
      35.65e6, "operations", 0.03424),
+    # the CholeskyQR pass: the Gram's half and the triangular mix, 8 flops a
+    # (j <= l, row) each (2 x 8 x 300 x 256 at k = 24, m = 256) and
+    # cholqr_rinv's 8k^3/3; the block read once and written once.  The
+    # five-peak cell's bfloat16 pairs (4 bytes an entry) and complex64
+    # final passes, and the brain cell's complex64 (V=1024 x 46 entries,
+    # m = 300, k = 32: 2 x 8 x 528 x 300 + 87,381 flop a block)
+    ("orth_pass five-peak bf16", bounds.orth_pass(B, 256, 24, "bf16"),
+     90.72e9, 3.523e9, "operations", 1.354),
+    ("orth_pass five-peak complex64", bounds.orth_pass(B, 256, 24,
+                                                       "complex64"),
+     90.72e9, 7.046e9, "bytes", 2.103),
+    ("orth_pass brain", bounds.orth_pass(1024 * 46, 300, 32, "complex64"),
+     123.5e9, 7.235e9, "bytes", 2.160),
 ])
 def test_main_path_bounds(name, got, flops, nbytes, by, ms):
     assert got.flops == pytest.approx(flops, rel=0.02), name
@@ -73,3 +86,14 @@ def test_tool_kernel_bounds():
     coef = bounds.eigh_probe(4480, 24, 8, do_rows=False)
     rows = bounds.eigh_probe(4480, 24, 8, do_v=False)
     assert coef.flops < rows.flops < full.flops
+
+
+def test_orth_pass_counts_the_storage_and_the_triangles():
+    """bfloat16 pairs move half the bytes of complex64 for the same
+    operations; the operations grow as the triangles k(k+1)/2, and an
+    unknown storage raises."""
+    c64, bf = (bounds.orth_pass(10, 64, 8, s) for s in ("complex64", "bf16"))
+    assert bf.flops == c64.flops == 10 * (16 * 36 * 64 + 8 * 8 ** 3 / 3)
+    assert 2 * bf.bytes == c64.bytes == 10 * 2 * 64 * 8 * 8
+    with pytest.raises(ValueError, match="storage"):
+        bounds.orth_pass(1, 8, 8, "float16")

@@ -394,7 +394,8 @@ def _noisy_north_star(v=4):
 def test_default_sweep_takes_the_bf16_branch(cuda, monkeypatch):
     """On the card KbdmConfig() runs the bfloat16 power iterations (the
     JAX package's accelerator default) through the cholqr_rinv kernel, one
-    launch a power iteration; a CPU tensor takes the float32 branch."""
+    launch a power iteration, inside the pass over the pairs as stored
+    (orth_pass); a CPU tensor takes the float32 branch."""
     calls = []
     branch = sweep_mod._power_iterations_bf16
     monkeypatch.setattr(sweep_mod, "_power_iterations_bf16",
@@ -410,7 +411,8 @@ def test_default_sweep_takes_the_bf16_branch(cuda, monkeypatch):
     assert calls == [1]
     assert y.dtype == torch.complex64 and bool(torch.isfinite(
         torch.view_as_real(y)).all())
-    assert dict(_build.LAUNCHES) == {"cholqr_rinv": cfg.subspace_iters}
+    assert dict(_build.LAUNCHES) == {"cholqr_rinv": cfg.subspace_iters,
+                                     "orth_pass": cfg.subspace_iters}
     assert not _build.PLAIN_ON_CUDA
 
 
@@ -504,9 +506,11 @@ def test_kernels_at_config2_widths_match_plain(cuda):
         x_p = cuda_linalg.chol_solve_plain(gk, b, shk)
         torch.testing.assert_close(cuda_linalg.chol_solve(gk, b, shk), x_p,
                                    rtol=0, atol=1e-5 * x_p.abs().max().item())
-    # the sweeps: cholqr_rinv 4 + 4 + 2, gram_svd 1 (the Takagi step)
+    # the sweeps: orth_pass and its cholqr_rinv 4 + 4 + 2, gram_svd 1 (the
+    # Takagi step)
     assert dict(_build.LAUNCHES) == {"eig_cs": 1, "gram_svd": 2,
-                                     "cholqr_rinv": 11, "chol_solve": 3}
+                                     "cholqr_rinv": 11, "chol_solve": 3,
+                                     "orth_pass": 10}
 
 
 @pytest.mark.cuda
@@ -780,9 +784,10 @@ def test_bench_eigensolve_launches_the_kernel_and_matches_plain(cuda):
 @pytest.mark.cuda
 def test_bench_entry_point_on_the_card(cuda, capsys):
     """bench.main at V=64 exits 0 on the card: both in-bench checks met,
-    the fit and refine launch all five main-path kernels (gn_normal once
-    per Gauss-Newton iteration of each refine call), the eigensolve eig_cs,
-    and no plain version runs on a CUDA tensor."""
+    the fit and refine launch all six main-path kernels (gn_normal once
+    per Gauss-Newton iteration of each refine call, orth_pass once per
+    CholeskyQR pass), the eigensolve eig_cs, and no plain version runs on
+    a CUDA tensor."""
     launches = {}
     assert bench.main(["--voxels", "64", "--reps", "1", "--json-only"],
                       launches) == 0
@@ -794,7 +799,7 @@ def test_bench_entry_point_on_the_card(cuda, capsys):
     fit_refine = {**launches["fit"]["launches"],
                   **launches["refine"]["launches"]}
     assert set(fit_refine) == {"eig_cs", "gram_svd", "cholqr_rinv",
-                               "chol_solve", "gn_normal"}
+                               "chol_solve", "gn_normal", "orth_pass"}
     assert launches["refine"]["launches"]["gn_normal"] % 6 == 0
     assert launches["eigensolve"]["launches"] == {"eig_cs": 2}
     assert not any(s["plain"] for s in launches.values())
@@ -851,13 +856,13 @@ def test_timesharded_refine_two_ranks_one_card(cuda, tmp_path):
 @pytest.mark.cuda
 def test_gridrunner_deleted_shard_bitwise_on_card(cuda, tmp_path):
     """A deleted shard recomputed on the card gathers bit for bit as before,
-    through all five main-path kernels and no plain version."""
+    through all six main-path kernels and no plain version."""
     sigs, _ = _small_grid(v=12)
     r = GridRunner(tmp_path, DWELL, GRID_CFG, cuda, shard_size=4,
                    refine=RefineConfig(iters=3), refine_clusters=4)
     assert r.run(sigs) == 3
     assert set(_build.LAUNCHES) == {"cholqr_rinv", "gram_svd", "eig_cs",
-                                    "chol_solve", "gn_normal"}
+                                    "chol_solve", "gn_normal", "orth_pass"}
     assert not _build.PLAIN_ON_CUDA
     first = r.gather(12)
     (tmp_path / "shard_00000004_00000008.npz").unlink()
@@ -885,3 +890,197 @@ def test_one_rank_nccl_group_is_bound_to_its_card(cuda):
         assert x.tolist() == [3.0] * 4
     finally:
         dist.destroy_process_group()
+
+
+# --- the sweep's CholeskyQR pass over a block as stored (csrc/orth_pass.cu) --
+
+def _masked_block(seed, v, m, s, k, cuda):
+    """A complex64 Gaussian (v, m, s, k) block drawn on the card, entry i's
+    rows from m_i on zero, m_i spread from max(k + 8, m / 2) to m (the
+    sweep's masks): every entry keeps more rows than columns."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    y = torch.randn((v, m, s, k), generator=gen, dtype=torch.complex64,
+                    device=cuda)
+    keep = np.linspace(min(m, max(k + 8, m // 2)), m, s).astype(int)
+    rows = torch.arange(m, device=cuda)[:, None]
+    mask = rows < torch.as_tensor(keep, device=cuda)[None, :]
+    return y * mask[..., None], keep
+
+
+def _bf16_within_a_step(a, b):
+    """As tests/test_torch_orth_pass.py: one bfloat16 step of the larger
+    value, beside 64 float32 eps of the block's largest entry (the float32
+    rounding by which the two versions' sums may differ)."""
+    a, b = a.float(), b.float()
+    step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+    return bool(((a - b).abs() <= step
+                 + 64 * np.finfo(np.float32).eps * b.abs().max()).all())
+
+
+# (V, m, S, k): the five-peak cell (2048, 256, 35, 24), the brain cell
+# (1024, 300, 46, 32), the widest k = 64, config 2's single entry at m = 512,
+# and a single voxel
+ORTH_SHAPES = [(2048, 256, 35, 24), (1024, 300, 46, 32), (128, 256, 35, 64),
+               (64, 512, 1, 32), (1, 256, 35, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [False, True], ids=["complex64", "pairs"])
+@pytest.mark.parametrize("shape", ORTH_SHAPES,
+                         ids=["x".join(map(str, s)) for s in ORTH_SHAPES])
+def test_orth_pass_kernel_matches_plain(cuda, shape, pairs):
+    """The pass on the card against its plain version on the same block:
+    G exactly Hermitian with a real diagonal and within float32 rounding
+    of the plain G (m eps of its largest entry), the shift likewise, masked
+    rows exactly 0, Q within float32 rounding (complex64: 1e-5 of its
+    largest entry, through Cholesky factors of condition ~10 on these
+    blocks) or one bfloat16 step of the plain version's rounding; one
+    orth_pass launch, with its cholqr_rinv."""
+    v, m, s, k = shape
+    y, keep = _masked_block(m + k, v, m, s, k, cuda)
+    x = cuda_linalg.to_pairs(y) if pairs else y
+    g, sh = cuda_linalg.orth_gram(x, 1e-4)
+    assert torch.equal(g, g.transpose(-1, -2).conj())
+    assert bool((g.diagonal(dim1=-2, dim2=-1).imag == 0).all())
+    g_p, sh_p = cuda_linalg._orth_gram_torch(y if not pairs else
+                                             cuda_linalg.from_pairs(x), 1e-4)
+    assert (g - g_p).abs().max() <= m * 1.2e-7 * g_p.abs().max()
+    torch.testing.assert_close(sh, sh_p, rtol=1e-5, atol=0)
+    _build.reset_counts()
+    q = cuda_linalg.orth_pass(x, 1e-4)
+    assert dict(_build.LAUNCHES) == {"orth_pass": 1, "cholqr_rinv": 1}
+    q_p = cuda_linalg.orth_pass_plain(x, 1e-4)
+    assert q.dtype == x.dtype and q.shape == x.shape
+    if pairs:
+        assert _bf16_within_a_step(q, q_p)
+    else:
+        torch.testing.assert_close(q, q_p, rtol=0,
+                                   atol=1e-5 * q_p.abs().max().item())
+    qc = cuda_linalg.from_pairs(q) if pairs else q
+    for i, mm in enumerate(keep):
+        assert bool((qc[:, mm:, i, :] == 0).all()), i
+    assert bool(torch.isfinite(torch.view_as_real(qc)).all())
+
+
+def _contract_errors(x, shift_rel):
+    """The pass's own G, shift and R^-1 (orth_gram and cholqr_rinv on the
+    card) held to cholqr_rinv's contract |R^-H (G + shift I) R^-1 - I| in
+    float64, chunked; returns (error, bound 0.2 k eps / shift_rel)."""
+    k = x.shape[-1]
+    g, sh = cuda_linalg.orth_gram(x, shift_rel)
+    g, sh = g.reshape(-1, k, k), sh.reshape(-1)
+    rinv = cuda_linalg.cholqr_rinv(g, sh)
+    assert bool(torch.isfinite(torch.view_as_real(rinv)).all())
+    err = max(_contract_error(rinv[i:i + 8192], g[i:i + 8192], sh[i:i + 8192])
+              for i in range(0, g.shape[0], 8192))
+    return err, 0.2 * k * np.finfo(np.float32).eps / shift_rel
+
+
+@pytest.mark.cuda
+def test_orth_pass_on_the_north_stars_production_blocks(cuda):
+    """On all 2048 noisy north-star voxels (the five-peak cell's shapes) the
+    pass stays finite at both shifts (the power iterations' 1e-4 and the
+    final 3e-6) on both storages, and its own G and R^-1 meet cholqr_rinv's
+    contract (chip_smoke.py's production_gram_checks' bound)."""
+    sigs, _ = five_peak.signals(2048, 1e-4)
+    c = torch.as_tensor(sigs, device=cuda).to(torch.complex64)
+    y = kbdm_sweep(c, DWELL, tuple(range(120, 257, 4)), KbdmConfig(p=16),
+                   _stop="powiter")
+    for x in (y, cuda_linalg.to_pairs(y)):
+        for shift_rel in (1e-4, 3e-6):
+            q = cuda_linalg.orth_pass(x, shift_rel)
+            qc = cuda_linalg.from_pairs(q) if q.dtype == torch.bfloat16 else q
+            assert bool(torch.isfinite(torch.view_as_real(qc)).all())
+            del q, qc
+            err, bound = _contract_errors(x, shift_rel)
+            assert err < bound, (x.dtype, shift_rel, err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell, voxels", [("five_peak_clean", 2048),
+                                          ("brain_clean", 1024)])
+def test_orth_pass_on_the_benchmark_cells_blocks(cuda, cell, voxels):
+    """On each benchmark cell's own blocks (its configuration and signals,
+    benchmark/configs, benchmark/inputs.py, at its voxels a batch): the
+    block the last power iteration's pass reads (pairs on the bfloat16
+    branch) at its shift, and the block the final passes read at 3e-6.
+    The pass's own G and R^-1 meet cholqr_rinv's contract, and the pass
+    stays finite."""
+    import dataclasses
+
+    from benchmark import inputs, spec
+
+    conf = spec.config(cell)
+    sig, mv = conf["signal"], conf["pipeline"]["m_values"]
+    m_values = tuple(range(mv["first"], mv["last"] + 1, mv["step"]))
+    kcfg = KbdmConfig(**conf["kbdm"])
+    c = inputs.synthesize(sig, voxels, 3021000001, cuda)[2].to(torch.complex64)
+    bf16 = sweep_mod.bf16_power_iterations(c, kcfg)
+    cases = ((dataclasses.replace(kcfg, subspace_iters=kcfg.subspace_iters - 1),
+              sweep_mod.BF16_POWITER_SHIFT if bf16
+              else sweep_mod.F32_POWITER_SHIFT, bf16),
+             (kcfg, sweep_mod.FINAL_SHIFT, False))
+    for case_cfg, shift_rel, pairs in cases:
+        y = kbdm_sweep(c, float(sig["dwell"]), m_values, case_cfg,
+                       _stop="powiter")
+        x = cuda_linalg.to_pairs(y) if pairs else y
+        del y
+        err, bound = _contract_errors(x, shift_rel)
+        assert err < bound, (cell, shift_rel, err, bound)
+        q = cuda_linalg.orth_pass(x, shift_rel)
+        qc = cuda_linalg.from_pairs(q) if pairs else q
+        assert bool(torch.isfinite(torch.view_as_real(qc)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_sweep_runs_each_pass_on_the_kernel_alone(cuda, monkeypatch, bf16):
+    """A sweep on the card at "highest" counts subspace_iters +
+    final_orth_passes orth_pass launches, and inside a pass no matrix
+    product (einsum, matmul) runs and no block is widened or rounded
+    (from_pairs, to_pairs)."""
+    inside, seen = [False], []
+
+    class Log(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if inside[0] and getattr(func, "__name__", "") in (
+                    "einsum", "matmul", "__matmul__", "bmm", "mm"):
+                seen.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    pass_ = sweep_mod._orth_pass
+
+    def spied_pass(*args, **kwargs):
+        inside[0] = True
+        try:
+            return pass_(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def spy(name):
+        fn = getattr(cuda_linalg, name)
+        monkeypatch.setattr(cuda_linalg, name, lambda *a: (
+            seen.append(name) if inside[0] else None) or fn(*a))
+
+    monkeypatch.setattr(sweep_mod, "_orth_pass", spied_pass)
+    spy("from_pairs")
+    spy("to_pairs")
+    c, _ = _noisy_north_star()
+    cfg = KbdmConfig(p=16, subspace_bf16=bf16)
+    with Log():
+        kbdm_sweep(c.to(cuda), DWELL, tuple(range(120, 257, 8)), cfg)
+    assert not seen, seen
+    assert _build.LAUNCHES["orth_pass"] == (cfg.subspace_iters
+                                            + cfg.final_orth_passes)
+    assert not _build.PLAIN_ON_CUDA
+
+
+@pytest.mark.cuda
+def test_orth_pass_above_64_columns_raises(cuda):
+    """k past 64 on the card raises, naming the config field to lower, and
+    nothing falls back to the plain version."""
+    y = torch.zeros(1, 40, 2, 65, dtype=torch.complex64, device=cuda)
+    for x in (y, cuda_linalg.to_pairs(y)):
+        with pytest.raises(ValueError, match=r"KbdmConfig\.p \+ oversample"):
+            cuda_linalg.orth_pass(x, 1e-4)
+    assert not _build.LAUNCHES and not _build.PLAIN_ON_CUDA
